@@ -11,17 +11,31 @@ Phases (each prints one line; any failure exits non-zero):
   2. build   — compiles the CUDA kernels of `parallel_ddp_tpu_torch/csrc`.
   3. kernels — each kernel against its plain PyTorch version on the card, on
                seeded inputs at the main path's shapes, within a stated
-               tolerance; and each one's time against the plain version's.
-  4. solve   — the main path: the WAFR Kuka iiwa-14 end-effector solve
-               (N=64, 4+4 blocks, 16 alphas, Euler, gravity-compensated) with
-               the fused Riccati sweep, cold then three warm re-solves along
-               the figure-8 goal; every kernel must have launched during it;
-               the cold solve is repeated on CPU tensors (plain versions) and
-               the two traces must agree.
+               tolerance; and each one's time against the plain version's
+               (the forward-dynamics kernel at B = 1, the closed loop's
+               shape, and at B = 8192, the batched dynamics benchmark's).
+  4. solve   — the WAFR Kuka iiwa-14 end-effector solve (N=64, 4+4 blocks,
+               16 alphas, Euler, gravity-compensated) with the fused Riccati
+               sweep, cold then three warm re-solves along the figure-8 goal;
+               every kernel must have launched during it; the cold solve is
+               repeated on CPU tensors (plain versions) and the two traces
+               must agree.
   5. timing  — median of 20 warm 6-iteration re-solves (the first warm
                re-solve, repeated; CUDA events).
+  6. fig8    — the figure-8 closed loop of benchmarks/fig8.py through the
+               port's MPC controller and device loop: cold start, a 4 s
+               settle on the path's start, then the 10 s track at 100 Hz
+               (6-iteration warm solves, 1 kHz Euler plant); every kernel
+               must have launched during it; the average EE error must be
+               finite and at most the original CUDA implementation's
+               0.0878 m.  Three control steps from the settled state are
+               repeated on CPU tensors (plain versions) and must agree with
+               the GPU's; the stages of one control step are timed.
+  7. profile — one torch.profiler run each of a warm solve and a fig-8
+               control step: kernel launches, stream syncs, device time and
+               the card's busy share.
 Then one JSON line with every kernel's numbers, the card line, and last
-{"ok": true, "device": {...}}.
+{"ok": true, "device": {...}}.  Takes about 2.5 minutes on an H100.
 
 Imports torch, numpy and the port only (never jax).
 """
@@ -38,6 +52,7 @@ import warnings
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 N_ITERS = 6          # iterations per solve (fixed budget: tol_cost = 0)
+QDD_BATCHES = (1, 8192)  # forward dynamics: the closed loop's and timedyn's batch
 N_WARM = 3           # warm re-solves along the figure-8 after the cold solve
 N_TIMED = 20         # warm solves in the timing median
 MPC_DT = 0.01        # figure-8 goal step between re-solves (100 Hz replanning)
@@ -45,7 +60,7 @@ MPC_DT = 0.01        # figure-8 goal step between re-solves (100 Hz replanning)
 # Kernel vs plain version on the card, both float32 on the same inputs.  The
 # two compute the same formulas in another order: nvcc contracts a*b+c into
 # fused multiply-adds and sums in its own order, while the plain versions run
-# PyTorch's separate kernels (and torch.func's forward-mode rules for the
+# PyTorch's separate kernels (and PyTorch's forward-mode AD rules for the
 # Jacobian).  Allowed: |kernel - plain| <= RTOL*|plain| + ATOL*max|plain|.
 TOL = {
     # ~2k-operation chain ending in a Cholesky solve of the 7x7 mass matrix,
@@ -55,11 +70,29 @@ TOL = {
     "rollout": (1e-4, 1e-5),
     # 16 dependent Riccati steps of 14x21 products and a 7x7 Cholesky
     "riccati": (1e-4, 1e-5),
+    # the ~2k-operation chain of rbd_jac's primal, ending in the same
+    # Cholesky solve (cond(M) ~1e3 amplifies float32 rounding)
+    "qdd": (1e-3, 1e-4),
 }
 # GPU (kernels) vs CPU (plain versions) solve: the same accept/reject and
 # alpha decisions, and J within this relative tolerance (float32 rounding of
 # two different summation orders over 6 iterations of a chaotic problem)
 SOLVE_RTOL = 1e-3
+
+# fig-8 closed loop (benchmarks/fig8.py): 100 Hz control, 1 kHz Euler plant,
+# a 4 s settle on the path's start, then the 10 s figure-8
+FIG8_PERIOD = 0.01
+FIG8_SIM_HZ = 1000.0
+FIG8_SETTLE_S = 4.0
+FIG8_TRACK_S = 10.0
+FIG8_CHUNK = 100          # control steps between synced, timed reads
+FIG8_BUDGET_S = 600.0     # the track is shortened to keep the phase within this
+FIG8_BAR_M = 0.0878       # the original CUDA implementation's average EE error
+# GPU vs CPU over 3 control steps from the settled state: the same accept
+# decisions, J within SOLVE_RTOL, the EE error within this many metres
+# (float32 rounding of two summation orders through 3 solves and 30 substeps)
+FIG8_CPU_STEPS = 3
+FIG8_ERR_ATOL = 1e-4
 
 
 def fail(msg):
@@ -103,6 +136,41 @@ def cuda_ms(fn, reps, warmup=2):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def count_syncs(torch, fn):
+    """Run fn with torch's sync debug mode on: (fn's result, the stream
+    syncs torch reported during it)."""
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    return out, sum("synchronizing CUDA operation" in str(w.message) for w in caught)
+
+
+def profile_line(torch, label, fn):
+    """One torch.profiler run of fn: kernel launches, device time, wall
+    time and the card's busy share, printed on one line."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = prof.key_averages()
+    launches = sum(e.count for e in events if "LaunchKernel" in e.key)
+    syncs = sum(e.count for e in events if e.key == "cudaStreamSynchronize")
+    device_ms = sum(getattr(e, "self_device_time_total", 0) for e in events) / 1e3
+    busy = f"{device_ms / wall_ms:.3f}" if device_ms > 0 else "not measured"
+    print(f"profile: {label}: {launches} kernel launches, {syncs} stream syncs, device "
+          f"{device_ms:.3f} ms in {wall_ms:.3f} ms of profiled wall time (busy {busy})",
+          flush=True)
 
 
 def compare(name, got, ref):
@@ -202,6 +270,27 @@ def kernel_phase(torch, np, dev):
         plain_ms=cuda_ms(lambda: cuda_riccati.run_block(
             step, rho.expand(M), seeds_P, seeds_p, AB, H, g, d, k_blk), 3)))
 
+    # -- forward dynamics: one sample (every plant / warm-start step of the
+    #    closed loop) and the batched dynamics benchmark's 8192
+    qdd = dict(name="qdd", route="cuda", source="parallel_ddp_tpu_torch/csrc/qdd.cu",
+               replaces="parallel_ddp_tpu/ops/pallas_rbd.py:39", max_abs_err=0.0, ok=True)
+    for B in QDD_BATCHES:
+        x = f32(rng.normal(0, 0.5, (B, nx)))
+        u = f32(rng.normal(0, 2.0, (B, nu)))
+        err, ok = compare("qdd", [cuda_rbd.kuka_qdd_cuda(x, u, 1, 0.0)],
+                          [cuda_rbd.kuka_qdd_plain(x, u, 1, 0.0)])
+        ms = cuda_ms(lambda: cuda_rbd.kuka_qdd_cuda(x, u, 1, 0.0), 200)
+        plain_ms = cuda_ms(lambda: cuda_rbd.kuka_qdd_plain(x, u, 1, 0.0), 10)
+        print(f"kernels: qdd B={B}: max_abs_err {err:.3e} ({'ok' if ok else 'OUT OF TOLERANCE'}); "
+              f"{ms:.4f} ms vs plain {plain_ms:.3f} ms", flush=True)
+        qdd["max_abs_err"] = max(qdd["max_abs_err"], err)
+        qdd["ok"] = qdd["ok"] and ok
+        if B == QDD_BATCHES[0]:
+            qdd["ms"], qdd["plain_ms"] = ms, plain_ms
+        else:
+            qdd[f"ms_b{B}"], qdd[f"plain_ms_b{B}"] = ms, plain_ms
+    results.append(qdd)
+
     for r in results:
         print(f"kernels: {r['name']}: max_abs_err {r['max_abs_err']:.3e} "
               f"(rtol {TOL[r['name']][0]:g}, atol {TOL[r['name']][1]:g} x max|plain|) "
@@ -213,9 +302,25 @@ def kernel_phase(torch, np, dev):
     return results
 
 
-def solve_phase(torch, np, dev):
-    """The main path, cold + warm, with the launch counters."""
+def counters():
+    """Each kernel's wrapper, whose `launches` counts its kernel launches."""
     from parallel_ddp_tpu_torch.ops import cuda_rbd, cuda_riccati, cuda_rollout
+
+    return {"rbd_jac": cuda_rbd.kuka_jac_qdd_cuda, "rollout": cuda_rollout.kuka_rollout_cuda,
+            "riccati": cuda_riccati.riccati_cuda, "qdd": cuda_rbd.kuka_qdd_cuda}
+
+
+def reset_counts():
+    for c in counters().values():
+        c.launches = 0
+
+
+def read_counts():
+    return {name: c.launches for name, c in counters().items()}
+
+
+def solve_phase(torch, np, dev):
+    """The WAFR solve, cold + warm, with the launch counters."""
     from parallel_ddp_tpu_torch.presets import ee_goal, figure8_goal, kuka_ee
     from parallel_ddp_tpu_torch.solver import make_ilqr_solver
 
@@ -238,10 +343,7 @@ def solve_phase(torch, np, dev):
            ee_goal(goal0, device=dev), initial_rollout=True)
     torch.cuda.synchronize()
 
-    counters = (cuda_rbd.kuka_jac_qdd_cuda, cuda_rollout.kuka_rollout_cuda,
-                cuda_riccati.riccati_cuda)
-    for c in counters:
-        c.launches = 0
+    reset_counts()
     outs = [solver(torch.as_tensor(x0, device=dev), torch.as_tensor(u0, device=dev),
                    ee_goal(goals[0], device=dev), initial_rollout=True)]
     for i in range(1, N_WARM + 1):
@@ -249,8 +351,7 @@ def solve_phase(torch, np, dev):
         outs.append(solver(prev.x, prev.u, ee_goal(goals[i], device=dev),
                            P0=prev.P, p0=prev.p, d0=prev.d, initial_rollout=False))
     torch.cuda.synchronize()
-    launches = {"rbd_jac": counters[0].launches, "rollout": counters[1].launches,
-                "riccati": counters[2].launches}
+    launches = read_counts()
     print(f"solve: kernel launches during the cold + {N_WARM} warm solves: "
           f"{json.dumps(launches)}", flush=True)
     if min(launches.values()) <= 0:
@@ -302,12 +403,7 @@ def timing_phase(torch, np, dev, solver, cold, goal):
         one()
     # the syncs torch itself reports for one warm solve, beside the count
     # the solver keeps
-    torch.cuda.set_sync_debug_mode("warn")
-    with warnings.catch_warnings(record=True) as caught:
-        warnings.simplefilter("always")
-        one()
-    torch.cuda.set_sync_debug_mode(0)
-    torch_syncs = sum("synchroniz" in str(w.message) for w in caught)
+    _, torch_syncs = count_syncs(torch, one)
     times = []
     for _ in range(N_TIMED):
         start = torch.cuda.Event(enable_timing=True)
@@ -321,10 +417,146 @@ def timing_phase(torch, np, dev, solver, cold, goal):
     print(f"timing: warm {N_ITERS}-iteration solve: median {float(np.median(times)):.3f} ms, "
           f"min {min(times):.3f}, max {max(times):.3f} over {N_TIMED} solves; "
           f"host syncs {solver.host_syncs} (torch sync-debug count {torch_syncs})", flush=True)
-    return float(np.median(times))
+    return float(np.median(times)), one
+
+
+def fig8_goals(torch, np, times, x_init, dev):
+    """The figure-8 goal at each time, as the (T,)-leading goal dict the
+    device loop takes (benchmarks/fig8.py goals_for)."""
+    from parallel_ddp_tpu_torch.presets import figure8_goal
+
+    xyz = np.stack([figure8_goal(t, FIG8_TRACK_S)[0] for t in times])
+    g = np.concatenate([xyz, np.zeros_like(xyz)], axis=1).astype(np.float32)
+    return {"ee_goal": torch.as_tensor(g, device=dev),
+            "x_target": torch.as_tensor(np.tile(x_init, (len(times), 1)), device=dev)}
+
+
+def fig8_phase(torch, np, dev, card):
+    """The figure-8 closed loop (benchmarks/fig8.py, device-loop mode) through
+    the port on dev, with the launch counters; then FIG8_CPU_STEPS control
+    steps from the settled state on the GPU and on the CPU."""
+    from parallel_ddp_tpu_torch.mpc.device_loop import make_device_mpc_loop
+    from parallel_ddp_tpu_torch.mpc.driver import MPCConfig, MPCController, MPCState
+    from parallel_ddp_tpu_torch.presets import fig8_weights, kuka_ee
+    from parallel_ddp_tpu_torch.solver import _derivatives
+
+    prob = kuka_ee(mpc_mode=True)
+    cfg = dataclasses.replace(prob.cfg, pallas_riccati=True)
+    ctrl = MPCController(prob.plant, prob.cost, cfg, MPCConfig(max_iters_per_solve=N_ITERS))
+    run = make_device_mpc_loop(ctrl, sim_rate_hz=FIG8_SIM_HZ, control_period_s=FIG8_PERIOD,
+                               sim_integrator=1)
+    w = fig8_weights()
+    x_init = np.zeros(14, np.float32)
+    x_init[1], x_init[3], x_init[5] = np.pi / 4, -np.pi / 4, np.pi / 4
+    n_settle = int(round(FIG8_SETTLE_S / FIG8_PERIOD))
+    n_track = int(round(FIG8_TRACK_S / FIG8_PERIOD))
+    goals_settle = fig8_goals(torch, np, np.zeros(n_settle), x_init, dev)
+    goals_track = fig8_goals(torch, np, (np.arange(n_track) + 1) * FIG8_PERIOD, x_init, dev)
+    fields = ("x", "ee_err", "J", "accepted", "ok")
+
+    def run_steps(st, x, t, goals, n):
+        """n control steps in chunks; host clock around each synced chunk."""
+        outs, wall, syncs = [], 0.0, 0
+        for i in range(0, n, FIG8_CHUNK):
+            seg = {k: v[i:min(i + FIG8_CHUNK, n)] for k, v in goals.items()}
+            m = seg["ee_goal"].shape[0]
+            t0 = time.perf_counter()
+            res = run(st, x, t, seg, w)
+            torch.cuda.synchronize(dev)
+            wall += time.perf_counter() - t0
+            st, x, t = res.state, res.x[m - 1], t + m * FIG8_PERIOD
+            outs.append(res)
+            syncs += res.host_syncs
+        series = {f: torch.cat([getattr(r, f) for r in outs]) for f in fields}
+        return st, x, t, series, wall, syncs
+
+    reset_counts()
+    t_phase = time.perf_counter()
+    st = ctrl.init_state(torch.as_tensor(x_init, device=dev), t0=0.0,
+                         goal={k: v[0] for k, v in goals_settle.items()}, weights=w)
+    st, x, t, settle, settle_wall, _ = run_steps(st, x_init, 0.0, goals_settle, n_settle)
+    settled = (MPCState(*(a.clone() for a in st)), x.clone(), t)
+    ms_settle = settle_wall * 1e3 / n_settle
+    # shorten the track (never the settle, never the width) if it would not
+    # fit the phase's budget at the settle's pace
+    left_s = FIG8_BUDGET_S - (time.perf_counter() - t_phase)
+    n_run = n_track
+    if ms_settle * n_track / 1e3 > left_s:
+        n_run = max(FIG8_CHUNK, int(left_s * 1e3 / ms_settle) // FIG8_CHUNK * FIG8_CHUNK)
+        print(f"fig8: CUT: the track is shortened to {n_run} of {n_track} control steps "
+              f"({n_run * FIG8_PERIOD:g} s of {FIG8_TRACK_S:g} s) at {ms_settle:.1f} ms per step",
+              flush=True)
+    st, x, t, track, track_wall, track_syncs = run_steps(
+        st, x, t, {k: v[:n_run] for k, v in goals_track.items()}, n_run)
+    launches = read_counts()
+
+    errs = track["ee_err"].cpu().numpy()
+    settle_errs = settle["ee_err"].cpu().numpy()
+    ok_rate = float(track["ok"].float().mean())
+    ms_step = track_wall * 1e3 / n_run
+    print(f"fig8: settle {n_settle} steps, final EE error {settle_errs[-1]:.4f} m, "
+          f"{ms_settle:.3f} ms per control step", flush=True)
+    print(f"fig8: track {n_run} steps: {ms_step:.3f} ms per control step (host clock around "
+          f"synced {FIG8_CHUNK}-step chunks) on {card}", flush=True)
+    print(f"fig8: average EE error {float(np.mean(errs)):.4f} m, max {float(np.max(errs)):.4f} m "
+          f"(bar {FIG8_BAR_M} m); ok rate {ok_rate:.3f}; accept rate "
+          f"{float(track['accepted'].float().mean()):.3f}; host syncs per control step "
+          f"{track_syncs / n_run:.2f}", flush=True)
+    print(f"fig8: kernel launches during init + settle + track: {json.dumps(launches)}",
+          flush=True)
+    if not (np.all(np.isfinite(errs)) and np.all(np.isfinite(settle_errs))):
+        fail("fig8: non-finite EE error")
+    if float(np.mean(errs)) > FIG8_BAR_M:
+        fail(f"fig8: average EE error {float(np.mean(errs)):.4f} m above {FIG8_BAR_M} m")
+    if min(launches.values()) <= 0:
+        fail(f"fig8: a kernel of the closed loop never launched: {launches}")
+
+    # the stages of one control step, from the settled state
+    st0, x0, t0 = settled
+    goal0 = {k: v[0] for k, v in goals_track.items()}
+    ks = torch.arange(cfg.num_time_steps, device=dev)
+    s0 = torch.zeros((), dtype=torch.int32, device=dev)
+    t0_dev = torch.full((), t0, dtype=torch.float32, device=dev)   # no copy from the host
+    one_goal = {k: v[:1] for k, v in goals_track.items()}
+    control_step = lambda: run(st0, x0, t0_dev, one_goal, w)
+    stage_ms = {
+        "control step (a 1-step loop call)": cuda_ms(control_step, 10),
+        "MPC step (warm start + solve)": cuda_ms(lambda: ctrl.step(st0, x0, t0_dev, goal0, w), 10),
+        "derivative stage": cuda_ms(lambda: _derivatives(
+            ctrl._solver.cfg, ctrl._solver.step_jac, prob.cost.quad, st0.x, st0.u, goal0, w), 20),
+        "cost H/g": cuda_ms(lambda: prob.cost.quad(st0.x, st0.u, ks, goal0, w), 20),
+        "EE Jacobian": cuda_ms(lambda: prob.plant.ee_jac(st0.x[:, :7]), 20),
+        "EE pose": cuda_ms(lambda: prob.plant.ee_pos(st0.x[:, :7]), 20),
+        "AB": cuda_ms(lambda: ctrl._solver.step_jac(st0.x[:-1], st0.u[:-1]), 20),
+        "warm-start rollout (63 steps)": cuda_ms(lambda: ctrl._warm_start(st0, x0, s0), 5),
+    }
+    print("fig8: ms per call: " + "; ".join(f"{k} {v:.3f}" for k, v in stage_ms.items()),
+          flush=True)
+
+    # FIG8_CPU_STEPS control steps from the settled state, on the GPU (with
+    # torch's own sync count) and on CPU tensors (the plain versions)
+    seg = {k: v[:FIG8_CPU_STEPS] for k, v in goals_track.items()}
+    gpu, torch_syncs = count_syncs(torch, lambda: run(st0, x0, t0_dev, seg, w))
+    cpu = run(MPCState(*(a.cpu() for a in st0)), x0.cpu(), t0,
+              {k: v.cpu() for k, v in seg.items()}, w)
+    g_err, c_err = gpu.ee_err.cpu().numpy(), cpu.ee_err.numpy()
+    g_j, c_j = gpu.J.cpu().numpy(), cpu.J.numpy()
+    g_acc, c_acc = gpu.accepted.cpu().numpy(), cpu.accepted.numpy()
+    print(f"fig8: {FIG8_CPU_STEPS} steps from the settled state: GPU EE error {g_err.tolist()} "
+          f"J {g_j.tolist()} accepted {g_acc.tolist()}; CPU EE error {c_err.tolist()} "
+          f"J {c_j.tolist()} accepted {c_acc.tolist()}; host syncs {gpu.host_syncs} "
+          f"(torch sync-debug count {torch_syncs})", flush=True)
+    if not (np.array_equal(g_acc, c_acc) and np.allclose(g_j, c_j, rtol=SOLVE_RTOL, atol=0.0)
+            and np.allclose(g_err, c_err, rtol=0.0, atol=FIG8_ERR_ATOL)):
+        fail(f"fig8: GPU and CPU control steps disagree (J rtol {SOLVE_RTOL}, "
+             f"EE error atol {FIG8_ERR_ATOL} m)")
+    print(f"fig8: GPU and CPU agree (same accepts, J within rtol {SOLVE_RTOL}, EE error "
+          f"within {FIG8_ERR_ATOL} m)", flush=True)
+    return launches, control_step
 
 
 def main():
+    t_start = time.perf_counter()
     try:
         import numpy as np
         import torch
@@ -355,15 +587,24 @@ def main():
 
     kernels = kernel_phase(torch, np, dev)
     solver, cold, goal, launches = solve_phase(torch, np, dev)
-    median_ms = timing_phase(torch, np, dev, solver, cold, goal)
+    median_ms, warm_solve = timing_phase(torch, np, dev, solver, cold, goal)
+    fig8_launches, control_step = fig8_phase(torch, np, dev, card)
+    # last: once the profiler has attached to the card, launches may cost
+    # more for the rest of the process
+    profile_line(torch, f"warm {N_ITERS}-iteration solve", warm_solve)
+    profile_line(torch, "fig-8 control step", control_step)
 
+    # launches: the fig-8 closed loop's counts; launches_wafr_solve: phase 4's
     line = {"kernels": [
         {k: r[k] for k in ("name", "route", "source", "replaces")}
-        | {"launches": launches[r["name"]], "max_abs_err": r["max_abs_err"],
+        | {"launches": fig8_launches[r["name"]], "max_abs_err": r["max_abs_err"],
            "ms": r["ms"], "plain_ms": r["plain_ms"]}
+        | {k: v for k, v in r.items() if k.startswith(("ms_b", "plain_ms_b"))}
+        | {"launches_wafr_solve": launches[r["name"]]}
         for r in kernels]}
     print(f"solve: median {median_ms:.3f} ms per warm {N_ITERS}-iteration solve on {card}",
           flush=True)
+    print(f"total: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps(line), flush=True)
     print(f"card: {card}", flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -13,8 +13,9 @@ cost(k) = eeCost + 0.5*R_EE*|u|^2 (non-terminal) + nominal-state regularizer
 
 The Hessian is the reference's Gauss-Newton form H_qq = deePos^T deePos —
 deliberately UNWEIGHTED (the commented-out `*factor` in cost_arm.cuh:358,366)
-— plus the diagonal nominal/control/limit second derivatives.  deePos comes
-from `torch.func.jacfwd` of the plant's forward kinematics.
+— plus the diagonal nominal/control/limit second derivatives.  deePos is the
+plant's `ee_jac` (`Plant.ee_jac`); only the EE-velocity option's second
+derivative d(deePos qd)/dq uses `torch.func`.
 
 goal: {"ee_goal": (6,), "x_target": (n_state,)} tensors, optionally
 "cost_shift" (live terminal-weight shift) and "ee_vel_goal" (6,).
@@ -49,6 +50,7 @@ def _where(cond, a: float, b: float, like):
 
 def ee_cost(
     ee_pos: Callable,
+    ee_jac: Callable,
     n_pos: int,
     n_ctrl: int,
     num_time_steps: int,
@@ -62,7 +64,8 @@ def ee_cost(
     final_cost_shift: int = 0,
 ) -> CostModel:
     """Build the EE cost model around a forward-kinematics map q -> (6,) pose
-    that takes any leading batch dims."""
+    that takes any leading batch dims, and its Jacobian
+    q (..., n_pos) -> (..., 6, n_pos)."""
 
     nf = num_time_steps - 1
     n_state = 2 * n_pos
@@ -75,12 +78,6 @@ def ee_cost(
                 torch.as_tensor(np.asarray(a), dtype=like.dtype, device=like.device)
                 for a in (pos_limits, vel_limits, torque_limits))
         return limit_cache[key]
-
-    def dee(q):
-        """d eePos / dq: (..., n_pos) -> (..., 6, n_pos)."""
-        flat = q.reshape(-1, n_pos)
-        jac = torch.func.vmap(torch.func.jacfwd(ee_pos))(flat)
-        return jac.reshape(q.shape[:-1] + (6, n_pos))
 
     def deev_dq(q, qd):
         """d (deePos(q) qd) / dq: (..., 6, n_pos)."""
@@ -108,7 +105,7 @@ def ee_cost(
         w_pos, w_vel = _ee_weights(k, w, goal, x)
         quad = (w_pos * delta * delta).sum(-1)
         if use_ee_vel:
-            eev = (dee(q) @ qd[..., None])[..., 0] - goal.get("ee_vel_goal", 0.0)
+            eev = (ee_jac(q) @ qd[..., None])[..., 0] - goal.get("ee_vel_goal", 0.0)
             quad = quad + (w_vel * eev * eev).sum(-1)
         return 0.5 * quad, delta, w_pos, w_vel
 
@@ -151,7 +148,7 @@ def ee_cost(
     def quad(x, u, k, goal, w: CostWeights):
         q, qd = x[..., :n_pos], x[..., n_pos:]
         ee_c, delta, w_pos, w_vel = _ee_terms(x, k, goal, w)
-        jac = dee(q)                                              # (..., 6, n_pos)
+        jac = ee_jac(q)                                           # (..., 6, n_pos)
 
         # gradient of the EE term w.r.t. x (cost_arm.cuh:224-254)
         g_ee_q = torch.einsum("...i,...ij->...j", w_pos * delta, jac)

@@ -16,6 +16,7 @@ import torch
 from parallel_ddp_tpu_torch.config import CostWeights, SolverConfig
 from parallel_ddp_tpu_torch.models.kuka import soa
 from parallel_ddp_tpu_torch.models.kuka.model import KukaParams
+from parallel_ddp_tpu_torch.mpc.driver import MPCState
 
 
 def tensor(a, device=None, dtype=None) -> torch.Tensor:
@@ -65,4 +66,15 @@ def kuka_constants(cc) -> soa._Consts:
         np.asarray(cc.ee_offset), float(cc.gravity),
         joint_types=cc.joint_types,
         ee_rot=None if cc.ee_rot is None else np.asarray(cc.ee_rot),
+    )
+
+
+def mpc_state(st, device=None) -> MPCState:
+    """The reference's `MPCState` (x, u, K, P, p, d, t0, fails), so that both
+    packages can start a closed loop from the same state."""
+    return MPCState(
+        x=tensor(st.x, device), u=tensor(st.u, device), K=tensor(st.K, device),
+        P=tensor(st.P, device), p=tensor(st.p, device), d=tensor(st.d, device),
+        t0=tensor(st.t0, device, torch.float32).reshape(()),
+        fails=tensor(st.fails, device, torch.int32).reshape(()),
     )

@@ -25,6 +25,8 @@ class Plant:
         for one sample; defaults to `torch.func.jacfwd` of `dynamics`.
       ee_pos: optional q (..., n_pos) -> (..., 6) end-effector pose [xyz, rpy].
       ee_vel: optional x (..., 2*n_pos) -> (..., 6) end-effector twist.
+      ee_jac: optional q (..., n_pos) -> (..., 6, n_pos), d ee_pos / dq
+        without `torch.func` (the EE cost's Jacobian).
       *_default: per-plant solver defaults (config.cuh:24-58).
       batched_step_jac: optional factory (integrator, dt) ->
         ab(xs (B, n_state), us (B, n_ctrl)) -> (B, n_state, n_state+n_ctrl):
@@ -43,6 +45,7 @@ class Plant:
     dynamics_jac: Optional[Callable] = None
     ee_pos: Optional[Callable[[torch.Tensor], torch.Tensor]] = None
     ee_vel: Optional[Callable[[torch.Tensor], torch.Tensor]] = None
+    ee_jac: Optional[Callable[[torch.Tensor], torch.Tensor]] = None
     rho_init_default: float = 1.0
     max_defect_default: float = 1.0
     alpha_base_default: float = 0.75

@@ -17,12 +17,13 @@ class KukaParams:
     ee_type: int = 1
     gravity: float = 9.81  # 0.0 reproduces MPC_MODE gravity-comp (dynamics_arm.cuh:42-46)
     # Dynamics core selection:
-    #   "cuda" the counterpart of the reference's core="pallas": per-sample
-    #          ops on the soa core; the solver's derivative stage runs through
-    #          the RBD-Jacobian op (ops/cuda_rbd.py) and the multiple-shooting
-    #          forward simulation through the rollout op (ops/cuda_rollout.py).
-    #          Both ops launch their CUDA kernels on CUDA tensors and use
-    #          their plain PyTorch versions on CPU tensors.
+    #   "cuda" the counterpart of the reference's core="pallas": the plant
+    #          dynamics run through the forward-dynamics op (ops/cuda_rbd.py
+    #          kuka_qdd), the solver's derivative stage through the
+    #          RBD-Jacobian op (same module) and the multiple-shooting forward
+    #          simulation through the rollout op (ops/cuda_rollout.py).  Each
+    #          op launches its CUDA kernel on CUDA tensors and uses its plain
+    #          PyTorch version (the soa core) on CPU tensors.
     #   "soa"  the same plant without those hooks.
     core: str = "cuda"
 
@@ -43,11 +44,15 @@ def kuka_params(mpc_mode: bool = False, ee_type: int = 1, core: str = "cuda") ->
 def kuka(params: KukaParams | None = None) -> Plant:
     params = params or KukaParams()
     rbd = _soa(params.ee_type, params.gravity)
+    dynamics = rbd.forward_dynamics
     batched_step_jac = None
     fused_rollout = None
     if params.core == "cuda":
-        from parallel_ddp_tpu_torch.ops.cuda_rbd import make_kuka_ab
+        from parallel_ddp_tpu_torch.ops.cuda_rbd import kuka_qdd, make_kuka_ab
         from parallel_ddp_tpu_torch.ops.cuda_rollout import make_kuka_fused_rollout
+
+        dynamics = functools.partial(kuka_qdd, ee_type=params.ee_type,
+                                     gravity=params.gravity)
 
         def batched_step_jac(integrator, dt, _p=params):
             return make_kuka_ab(_p.ee_type, _p.gravity, integrator, dt)
@@ -63,9 +68,10 @@ def kuka(params: KukaParams | None = None) -> Plant:
         name=f"kuka_ee{params.ee_type}_g{params.gravity:g}_{params.core}",
         n_pos=7,
         n_ctrl=7,
-        dynamics=rbd.forward_dynamics,
+        dynamics=dynamics,
         ee_pos=rbd.ee_pose,
         ee_vel=rbd.ee_velocity,
+        ee_jac=rbd.ee_pose_jacobian,
         rho_init_default=12.5,
         max_defect_default=1.0,
         alpha_base_default=0.5,

@@ -1,16 +1,21 @@
 """Kuka iiwa-14 rigid-body dynamics in scalar-channel (structure-of-arrays) form.
 
-Twin of `parallel_ddp_tpu/models/kuka/soa.py`, on torch tensors.  Every
-quantity is a scalar channel: a tensor of whatever batch shape the caller
-passes, and the only operations are elementwise mul/add/sin/cos/sqrt/div and
-atan2.  Constants are Python floats.  The same dataflow is written once more,
-by hand, in C++ for the CUDA kernels (`csrc/kuka_soa.cuh`).
+Twin of `parallel_ddp_tpu/models/kuka/soa.py`, on torch tensors.  In the
+dynamics every quantity is a scalar channel: a tensor of whatever batch shape
+the caller passes, and the only operations are elementwise
+mul/add/sin/cos/sqrt/div.  Constants are Python floats.  The same dataflow is
+written once more, by hand, in C++ for the CUDA kernels
+(`csrc/kuka_soa.cuh`).  The end-effector FK and its Jacobian, which the cost
+runs eagerly over whole trajectories, keep the joint index as a tensor
+dimension instead (`SerialArmSoA._frames`): the same math in a few dozen
+launches rather than hundreds.
 
 Algorithms (identical math to the reference):
   * RNEA with gravity-as-base-acceleration for the bias C
   * CRBA for the mass matrix M
   * unrolled 7x7 Cholesky solve for qdd = M^{-1}(tau - C)
-  * FK chain for the end-effector pose (atan2 rpy extraction)
+  * FK chain for the end-effector pose (atan2 rpy extraction) and its
+    Jacobian by forward mode, all joint tangents in one pass
 
 Conventions: vectors are Python lists [x, y, z] of channels; 3x3 matrices are
 row-major nested lists.  A channel is a tensor of the batch shape plus a
@@ -314,40 +319,6 @@ def qdd_channels(cc: _Consts, q, qd, tau):
     return _chol_solve7(m_mat, rhs)
 
 
-def fk_channels(cc: _Consts, q):
-    """World frames per link: (rs: list of Mat3, ps: list of Vec3)."""
-    rcl = _local_rots(cc, q)
-    pcl = _local_ps(cc, q)
-    zero = 0.0 * q[0]
-    one = 1.0 + zero
-    r_w = [[one, zero, zero], [zero, one, zero], [zero, zero, one]]
-    p_w = [zero, zero, zero]
-    rs, ps = [], []
-    for i in range(cc.n):
-        p_w = _v_add(p_w, _m_vec(r_w, [pcl[i][0] + zero,
-                                       pcl[i][1] + zero,
-                                       pcl[i][2] + zero]))
-        r_w = _m_mul(r_w, rcl[i])
-        rs.append(r_w)
-        ps.append(p_w)
-    return rs, ps
-
-
-def ee_pose_channels(cc: _Consts, q):
-    """EE [xyz, rpy] as 6 channels (rpy extraction: dynamics_arm.cuh:1890-1895)."""
-    rs, ps = fk_channels(cc, q)
-    r = rs[-1]
-    off = cc.ee_offset
-    pos = _v_add(ps[-1], _m_vec(r, [off[0] + 0.0 * q[0], off[1] + 0.0 * q[0],
-                                    off[2] + 0.0 * q[0]]))
-    if cc.ee_rot is not None:
-        r = _m_mul(r, cc.ee_rot)
-    roll = torch.atan2(r[2][1], r[2][2])
-    pitch = torch.atan2(-r[2][0], torch.sqrt(r[2][1] ** 2 + r[2][2] ** 2))
-    yaw = torch.atan2(r[1][0], r[0][0])
-    return pos + [roll, pitch, yaw]
-
-
 # ---------- tensor-in / tensor-out wrappers ----------
 
 def _split(x, n):
@@ -359,12 +330,13 @@ def _split(x, n):
 class SerialArmSoA:
     """Array API over the scalar-channel core for any revolute/prismatic
     chain.  Accepts single samples (x: (2n,)) or any leading batch dims
-    (x: (..., 2n)) — every op is elementwise."""
+    (x: (..., 2n))."""
 
     def __init__(self, cc: _Consts):
         self.cc = cc
         self.n = cc.n
         self.gravity = cc.gravity
+        self._tensors = {}        # (device, dtype) -> `_frame_consts`
 
     def forward_dynamics(self, x, u):
         n = self.n
@@ -384,8 +356,111 @@ class SerialArmSoA:
         c_vec, m_mat = self.bias_and_mass(q, qd)
         return torch.einsum("...ij,...j->...i", m_mat, qdd) + c_vec
 
+    def _frame_consts(self, like):
+        """(r_tree (n, 3, 3), p_tree (n, 3), ee_offset (3,), ee_rot or None,
+        revolute mask (n,), 0-d zero, 0-d one, identity mask (n, n)) as
+        tensors on like's device, made once per device and dtype: a copy from
+        the host on every call would synchronise the stream."""
+        key = (like.device, like.dtype)
+        found = self._tensors.get(key)
+        if found is None:
+            cc, f = self.cc, dict(dtype=like.dtype, device=like.device)
+            found = (torch.as_tensor(cc.r_tree, **f), torch.as_tensor(cc.p_tree, **f),
+                     torch.as_tensor(cc.ee_offset, **f),
+                     None if cc.ee_rot is None else torch.as_tensor(cc.ee_rot, **f),
+                     torch.as_tensor([t == "r" for t in cc.joint_types], device=like.device),
+                     torch.zeros((), **f), torch.ones((), **f),
+                     torch.eye(self.n, dtype=torch.bool, device=like.device))
+            self._tensors[key] = found
+        return found
+
+    def _frames(self, q, tangents: bool = False):
+        """The FK chain: (EE rotation (..., 3, 3), EE position (..., 3)) and,
+        with tangents=True, their derivatives along each joint,
+        (..., n, 3, 3) and (..., n, 3) with joint j on dim -3 / -2.
+
+        Unlike the dynamics, FK keeps the joint index as a tensor dimension
+        and chains batched 3x3 products: a few dozen launches instead of the
+        scalar channels' hundreds, the same math (the reference's
+        `fk_channels`: R_w <- R_w R_local, p_w <- p_w + R_w p_local).  The
+        tangents are forward-mode AD written out: all n unit tangents in one
+        pass, each product differentiated by the rule PyTorch's forward AD
+        applies to it, so they equal `torch.func.jacfwd`'s bit for bit on the
+        CPU."""
+        n = self.n
+        r_tree, p_tree, off, ee_rot, revolute, zero, one, eye = self._frame_consts(q)
+        # local frames (`_local_rots`, `_local_ps`): R_tree[i] Rz(q_i) and the
+        # joint origin, or R_tree[i] and the origin slid along z by q_i
+        cq, sq = torch.cos(q), torch.sin(q)
+        c = torch.where(revolute, cq, one)[..., None]                      # (..., n, 1)
+        s = torch.where(revolute, sq, zero)[..., None]
+        rt0, rt1, rt2 = r_tree.unbind(-1)                                  # (n, 3) columns
+        r_loc = torch.stack([c * rt0 + s * rt1, c * rt1 - s * rt0,
+                             rt2.expand(q.shape + (3,))], dim=-1)          # (..., n, 3, 3)
+        p_loc = p_tree + torch.where(revolute, zero, q)[..., None] * rt2  # (..., n, 3)
+        r_w, p_w = r_loc[..., 0, :, :], p_loc[..., 0, :]
+        if tangents:
+            # q_j moves only local frame j: (cos, sin)' = (-sin, cos) for a
+            # revolute joint, the origin's slide along z for a prismatic one
+            dc = torch.where(revolute, -sq, zero)[..., None]
+            ds = torch.where(revolute, cq, zero)[..., None]
+            d_own = torch.stack([dc * rt0 + ds * rt1, dc * rt1 - ds * rt0,
+                                 zero.expand(q.shape + (3,))], dim=-1)     # (..., n, 3, 3)
+            dp_own = (torch.where(revolute, zero, one)[..., None] * rt2
+                      + torch.zeros_like(p_loc))                          # (..., n, 3)
+            dr_loc = torch.where(eye[:, :, None, None], d_own[..., None, :, :, :], zero)
+            dp_loc = torch.where(eye[:, :, None], dp_own[..., None, :, :], zero)
+            dr_w, dp_w = dr_loc[..., 0, :, :], dp_loc[..., 0, :]          # (..., n, 3, 3)
+        for i in range(1, n):
+            p_i, r_i = p_loc[..., i, :, None], r_loc[..., i, :, :]
+            if tangents:
+                dp_w = dp_w + (dr_w @ p_i[..., None, :, :]
+                               + r_w[..., None, :, :] @ dp_loc[..., i, :, None])[..., 0]
+                dr_w = dr_w @ r_i[..., None, :, :] + r_w[..., None, :, :] @ dr_loc[..., i, :, :]
+            p_w = p_w + (r_w @ p_i)[..., 0]
+            r_w = r_w @ r_i
+        p_ee = p_w + r_w @ off                                             # (..., 3)
+        r_ee = r_w if ee_rot is None else r_w @ ee_rot
+        if not tangents:
+            return r_ee, p_ee
+        return (r_ee, p_ee, dr_w if ee_rot is None else dr_w @ ee_rot,
+                dp_w + dr_w @ off)
+
     def ee_pose(self, q):
-        return torch.cat(ee_pose_channels(self.cc, _split(q, self.n)), dim=-1)
+        """EE [xyz, rpy] (..., 6) (rpy extraction: dynamics_arm.cuh:1890-1895)."""
+        r, p = self._frames(q)
+        # entries keep a trailing unit dim, as the channels do (`_split`)
+        r00, r10, r20 = r[..., 0, 0:1], r[..., 1, 0:1], r[..., 2, 0:1]
+        r21, r22 = r[..., 2, 1:2], r[..., 2, 2:3]
+        roll = torch.atan2(r21, r22)
+        pitch = torch.atan2(-r20, torch.sqrt(r21 ** 2 + r22 ** 2))
+        yaw = torch.atan2(r10, r00)
+        return torch.cat([p, roll, pitch, yaw], dim=-1)
+
+    def ee_pose_jacobian(self, q):
+        """d ee_pose / dq: (..., n) -> (..., 6, n), by forward mode over
+        `_frames` with the n unit tangents in one pass, then through the
+        three atan2 of `ee_pose` by the same rules.  Equal to
+        `torch.func.jacfwd(ee_pose)` bit for bit on the CPU, without its
+        transforms (under `torch.func` it took ~90 ms a call on an H100)."""
+        if not set(self.cc.joint_types) <= {"r", "p"}:
+            raise NotImplementedError(f"joint types {self.cc.joint_types!r}")
+        # over a flat batch, as `torch.func.vmap` of jacfwd runs it
+        r, _, dr, dp = self._frames(q.reshape(-1, self.n), tangents=True)
+        r00, r10, r20 = (r[..., None, i, 0] for i in range(3))            # (..., 1)
+        r21, r22 = r[..., None, 2, 1], r[..., None, 2, 2]
+        d00, d10, d20 = (dr[..., i, 0] for i in range(3))                 # (..., n)
+        d21, d22 = dr[..., 2, 1], dr[..., 2, 2]
+
+        def atan2_t(y, x, dy, dx):        # forward-mode rule of atan2(y, x)
+            return (x * dy - y * dx) / (y * y + x * x)
+
+        h = torch.sqrt(r21 ** 2 + r22 ** 2)
+        dh = (2 * r21 * d21 + 2 * r22 * d22) / (2 * h)
+        d_rpy = (atan2_t(r21, r22, d21, d22), atan2_t(-r20, h, -d20, dh),
+                 atan2_t(r10, r00, d10, d00))
+        jac = torch.cat([dp] + [d[..., None] for d in d_rpy], dim=-1).transpose(-1, -2)
+        return jac.reshape(q.shape[:-1] + (6, self.n))
 
     def ee_velocity(self, x):
         q, qd = x[..., : self.n], x[..., self.n:]

@@ -1,0 +1,294 @@
+"""Warm-started receding-horizon MPC driver (twin of
+`parallel_ddp_tpu/mpc/driver.py`; MPCHelpers.cuh).
+
+The solver state (x, u, K, P, p, d) persists across solves on the device of
+the measured state — the reference's GPUVars warm start.  Each control step:
+
+  1. shift: roll every trajectory array left by the elapsed plant time
+     (zero-order-hold the tail) — shiftAndCopy (MPCHelpers.cuh:425-471);
+  2. re-rollout: overwrite the first shooting interval (or the full horizon)
+     by open-loop simulation from the *measured* state xActual —
+     rolloutMPC (MPCHelpers.cuh:523-563, FULL_ROLLOUT switch);
+  3. solve: a fixed-iteration-budget iLQR solve warm-started from the shifted
+     state (the budget is an iteration cap, `_resolve_iter_limit`);
+  4. accept: on a failed solve (no iteration accepted) keep executing the
+     shifted stale plan; after `solves_to_reset` consecutive failures zero
+     P/p (and, optionally, u/K) for a cold restart (MPCHelpers.cuh:752-774,
+     610, 668).
+
+The shift index, accept and reset decisions stay on the device
+(`torch.where` and index tensors): a step reads nothing on the host beyond
+the solver's own exit-flag reads (`host_syncs`).  The fleet entry points
+(`init_state_batch`, `step_batch`) are not ported yet.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import NamedTuple, Optional
+
+import torch
+
+from parallel_ddp_tpu_torch.config import CostWeights, SolverConfig
+from parallel_ddp_tpu_torch.costs.base import CostModel
+from parallel_ddp_tpu_torch.models.base import Plant
+from parallel_ddp_tpu_torch.ops.integrators import make_step
+from parallel_ddp_tpu_torch.solver import make_ilqr_solver
+
+
+@dataclasses.dataclass(frozen=True)
+class MPCConfig:
+    """MPC options (config.cuh MPC group + MPCHelpers constants); the meaning
+    of each field is documented on `parallel_ddp_tpu.mpc.driver.MPCConfig`."""
+
+    max_iters_per_solve: int = 6      # the 10 ms budget analog
+    # FULL_ROLLOUT: re-simulate the whole horizon (vs the first block only)
+    # each warm start; restores zero defects every solve (MPCHelpers.cuh:37-38)
+    full_rollout: bool = True
+    solves_to_reset: int = 10         # SOLVES_TO_RESET (MPCHelpers.cuh:610)
+    max_shift_steps: Optional[int] = None  # clamp on warm-start shift
+    # online solves enforce the defect bound (LCMHelpers.cuh:242)
+    ignore_defect_online: bool = False
+    # the reference's reset also zeroes u/K (MPCHelpers.cuh:610,668); the
+    # default restarts only the solver (P/p) and keeps the last feasible plan
+    zero_controls_on_reset: bool = False
+
+
+class MPCState(NamedTuple):
+    x: torch.Tensor
+    u: torch.Tensor
+    K: torch.Tensor
+    P: torch.Tensor
+    p: torch.Tensor
+    d: torch.Tensor
+    t0: torch.Tensor      # plant time of x[0] (seconds), 0-d float32
+    fails: torch.Tensor   # consecutive failed solves, 0-d int32
+
+
+class MPCStepInfo(NamedTuple):
+    J: torch.Tensor
+    iters: int
+    accepted: torch.Tensor
+    shift_steps: torch.Tensor
+    max_defect: torch.Tensor
+    ok: torch.Tensor = None  # accepted OR converged (not a real failure)
+
+
+def _shift(a: torch.Tensor, s) -> torch.Tensor:
+    """a[k] <- a[min(k+s, N-1)] (ZOH tail fill, shiftAndCopy semantics);
+    s is an int or a 0-d integer tensor on a's device."""
+    n = a.shape[0]
+    idx = torch.clamp(torch.arange(n, device=a.device) + s, max=n - 1)
+    return a.index_select(0, idx)
+
+
+class MPCController:
+    """The MPC step for a (plant, cost, solver config) triple."""
+
+    def __init__(
+        self,
+        plant: Plant,
+        cost: CostModel,
+        cfg: SolverConfig,
+        mpc_cfg: MPCConfig = MPCConfig(),
+    ):
+        self.plant = plant
+        self.cost = cost
+        self.cfg = cfg
+        self.mpc = mpc_cfg
+        solver_cfg = dataclasses.replace(cfg, max_iter=mpc_cfg.max_iters_per_solve)
+        self._solver = make_ilqr_solver(plant, cost, solver_cfg)
+        self._step_fn = make_step(plant, cfg.integrator, cfg.dt)
+        self._init_solvers: dict = {}  # warmup_iters -> solver
+        # wall-clock budget model (see the reference's MPCController): a
+        # time budget becomes an iteration cap time/per_iter, calibrated from
+        # live solves as wall = overhead + per_iter*iters over the minimum
+        # observed wall per iteration count
+        self.per_iter_ms: Optional[float] = None
+        self.overhead_ms: float = 0.0
+        self._timing_min_ms: dict = {}
+
+    @property
+    def host_syncs(self) -> int:
+        """Exit-flag reads on the host by the last step's solve."""
+        return self._solver.host_syncs
+
+    def _warmup_solver(self, warmup_iters: int):
+        """Cached full-convergence solver for cold starts."""
+        solver = self._init_solvers.get(warmup_iters)
+        if solver is None:
+            warm_cfg = dataclasses.replace(self.cfg, max_iter=warmup_iters)
+            solver = make_ilqr_solver(self.plant, self.cost, warm_cfg)
+            self._init_solvers[warmup_iters] = solver
+        return solver
+
+    def init_state(self, x_actual, t0: float = 0.0, goal=None,
+                   weights: Optional[CostWeights] = None,
+                   warmup_iters: int = 50) -> MPCState:
+        """Cold-start: full-convergence solve from the measured state (the
+        reference's warm-start solve with infinite budget,
+        LCM_fig8_examples.cu:261-262), on the device of x_actual."""
+        x = torch.as_tensor(x_actual, dtype=torch.float32)
+        n_steps = self.cfg.num_time_steps
+        x0 = x[None].expand(n_steps, -1).clone()
+        u0 = x.new_zeros((n_steps, self.plant.n_ctrl))
+        out = self._warmup_solver(warmup_iters)(x0, u0, goal, weights, initial_rollout=True)
+        return MPCState(
+            x=out.x, u=out.u, K=out.K, P=out.P, p=out.p, d=out.d,
+            t0=torch.full((), t0, dtype=torch.float32, device=x.device),
+            fails=torch.zeros((), dtype=torch.int32, device=x.device),
+        )
+
+    def _warm_start(self, st: MPCState, x_actual, s):
+        x = _shift(st.x, s)
+        u = _shift(st.u, s)
+        k_mat = _shift(st.K, s)
+        p_mat = _shift(st.P, s)
+        p_vec = _shift(st.p, s)
+
+        # re-rollout from the measured state with the shifted open-loop
+        # controls (rolloutMPC, MPCHelpers.cuh:523-563)
+        n_steps, nf = self.cfg.num_time_steps, self.cfg.n_blocks_f
+        n_roll = n_steps if self.mpc.full_rollout else nf
+        x_cur, x_sim = x_actual, [x_actual]
+        for k in range(n_roll - 1):
+            x_cur = self._step_fn(x_cur, u[k])
+            x_sim.append(x_cur)
+        x_last = x_cur
+        x = torch.cat([torch.stack(x_sim), x[n_roll:]])
+
+        if self.mpc.full_rollout or self.cfg.m_blocks_f == 1:
+            # the whole horizon is one contiguous simulation: zero defects
+            d = torch.zeros_like(st.d)
+        else:
+            # shifting moves the old defects off the (fixed) block boundaries
+            d = _shift(st.d, s)
+            # boundaries that landed in the ZOH tail (k + s >= N-1) repeat the
+            # final state on both sides, so the shifted defect reads zero while
+            # the true defect there is step(x[N-1], u[N-1]) - x[N-1]
+            d_tail = self._step_fn(x[n_steps - 1], u[n_steps - 1]) - x[n_steps - 1]
+            bidx = torch.arange(1, self.cfg.m_blocks_f, device=x.device) * nf - 1
+            in_tail = bidx + s >= n_steps - 1
+            d = d.index_copy(0, bidx, torch.where(in_tail[:, None], d_tail[None, :],
+                                                  d.index_select(0, bidx)))
+            # the first boundary's defect is exact (block 0 was just
+            # re-simulated from the measured state); written LAST so it wins
+            # over the tail approximation above
+            b0 = nf - 1
+            d[b0] = self._step_fn(x_last, u[b0]) - x[b0 + 1]
+        return x, u, k_mat, p_mat, p_vec, d
+
+    def _mpc_step(self, st: MPCState, x_actual, t_now, goal, weights, iter_limit: int):
+        dt = self.cfg.dt
+        s_f = (t_now - st.t0) / dt
+        s = torch.floor(s_f).to(torch.int32)          # MPCHelpers.cuh:875
+        s = torch.clamp(s, 0, self.cfg.num_time_steps - 1)
+        if self.mpc.max_shift_steps is not None:
+            s = torch.clamp(s, max=self.mpc.max_shift_steps)
+        t0_new = st.t0 + s.to(torch.float32) * dt
+
+        x_w, u_w, k_w, pm_w, pv_w, d_w = self._warm_start(st, x_actual, s)
+
+        out = self._solver(
+            x_w, u_w, goal, weights,
+            P0=pm_w, p0=pv_w, d0=d_w,
+            initial_rollout=False,
+            ignore_first_defect=self.mpc.ignore_defect_online,
+            iter_limit=iter_limit,
+        )
+        accepted = (out.alpha_trace[1:] >= 0).any()
+
+        # failure handling (storeVarsGPU_MPC, MPCHelpers.cuh:752-774): a solve
+        # that accepted nothing because there was nothing to improve
+        # (converged) or whose candidates were feasible but rejected
+        # (last_feasible) is a success; see the reference for why
+        ok = accepted | out.converged | out.last_feasible
+
+        def pick(new, old):
+            return torch.where(accepted, new, old)
+
+        fails = torch.where(ok, torch.zeros_like(st.fails), st.fails + 1)
+        reset = fails >= self.mpc.solves_to_reset
+        fails = torch.where(reset, torch.zeros_like(fails), fails)
+
+        def maybe_zero(arr):
+            if self.mpc.zero_controls_on_reset:
+                return torch.where(reset, torch.zeros_like(arr), arr)
+            return arr
+
+        new_state = MPCState(
+            x=pick(out.x, x_w),
+            u=maybe_zero(pick(out.u, u_w)),
+            K=maybe_zero(pick(out.K, k_w)),
+            P=torch.where(reset, torch.zeros_like(pm_w), pick(out.P, pm_w)),
+            p=torch.where(reset, torch.zeros_like(pv_w), pick(out.p, pv_w)),
+            d=pick(out.d, d_w),
+            t0=t0_new, fails=fails,
+        )
+        info = MPCStepInfo(
+            J=out.J, iters=out.iters, accepted=accepted,
+            shift_steps=s, max_defect=out.max_defect, ok=ok,
+        )
+        return new_state, info
+
+    def _resolve_iter_limit(self, iter_limit: Optional[int],
+                            time_limit_ms: Optional[float]) -> int:
+        """Fold the live iterLimit/timeLimit solver params (lcmt_solver_params,
+        LCMHelpers.cuh:213) into one iteration cap.  A wall-clock budget maps
+        through the measured per-iteration latency (self.per_iter_ms)."""
+        cap = self.mpc.max_iters_per_solve
+        if iter_limit is not None:
+            cap = min(cap, int(iter_limit))
+        if time_limit_ms is not None and self.per_iter_ms:
+            budget = time_limit_ms - self.overhead_ms
+            cap = min(cap, max(1, int(budget / self.per_iter_ms)))
+        return max(1, cap)
+
+    def warmup(self, st: MPCState, goal, weights: Optional[CostWeights] = None):
+        """Run one MPC step and discard it, so the first live step does not
+        pay for first-use work (kernel build, per-device constants)."""
+        w = weights if weights is not None else CostWeights()
+        out = self._mpc_step(st, st.x[0], st.t0, goal, w, self.mpc.max_iters_per_solve)
+        if out[0].x.device.type == "cuda":
+            torch.cuda.synchronize(out[0].x.device)
+
+    def calibrate_timing(self, solve_ms: float, iters: int):
+        """Record a measured (solve wall time, iterations executed) pair to
+        build the per-iteration latency model used by time_limit_ms budgets.
+
+        Measure wall time around a synchronised solve.  With samples at two or
+        more distinct iteration counts the fixed per-solve overhead is
+        separated out by a two-point secant over the per-count minima; with
+        one count, wall/iters is the (conservative) fallback."""
+        if iters <= 0:
+            return
+        prev = self._timing_min_ms.get(iters)
+        if prev is None or solve_ms < prev:
+            self._timing_min_ms[iters] = solve_ms
+        pts = sorted(self._timing_min_ms.items())
+        if len(pts) >= 2:
+            (i_lo, w_lo), (i_hi, w_hi) = pts[0], pts[-1]
+            slope = (w_hi - w_lo) / (i_hi - i_lo)
+            if slope > 0:
+                self.per_iter_ms = slope
+                self.overhead_ms = max(0.0, w_lo - slope * i_lo)
+                return
+        self.per_iter_ms = min(w / i for i, w in pts)
+        self.overhead_ms = 0.0
+
+    def step(self, st: MPCState, x_actual, t_now, goal,
+             weights: Optional[CostWeights] = None,
+             iter_limit: Optional[int] = None,
+             time_limit_ms: Optional[float] = None):
+        """One MPC re-solve: shift + warm start + budgeted solve.
+
+        x_actual: measured state; t_now: plant clock (s); goal, weights,
+        iter_limit and time_limit_ms may change every call (the reference's
+        GOAL/COST_PARAMS/SOLVER_PARAMS channels, LCMHelpers.cuh:204-214)."""
+        w = weights if weights is not None else CostWeights()
+        dev = st.x.device
+        return self._mpc_step(
+            st, torch.as_tensor(x_actual, dtype=torch.float32, device=dev),
+            torch.as_tensor(t_now, dtype=torch.float32, device=dev),
+            goal, w, self._resolve_iter_limit(iter_limit, time_limit_ms),
+        )

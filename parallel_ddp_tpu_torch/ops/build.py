@@ -1,8 +1,9 @@
 """Build and load the CUDA kernels of `csrc/`.
 
 The kernels are CUDA C++ for `sm_90a` with a plain C interface, compiled by
-`nvcc` into one shared library and loaded with `ctypes` (no PyTorch headers,
-so a build takes seconds, not minutes).  The library goes into
+`nvcc` (one process per source, all started together) and linked into one
+shared library loaded with `ctypes` (no PyTorch headers, so a build takes
+seconds, not minutes).  The library goes into
 `build/torch_kernels/<hash of the sources and flags>/` at the root of the
 checkout, so a changed source rebuilds and an unchanged one loads at once.
 
@@ -24,12 +25,12 @@ import time
 import torch
 
 CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
-SOURCES = ("rbd_jac.cu", "rollout.cu", "riccati.cu")
+SOURCES = ("rbd_jac.cu", "rollout.cu", "riccati.cu", "qdd.cu")
 HEADERS = ("kuka_soa.cuh",)
 BUILD_ROOT = pathlib.Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 LIB_NAME = "libpddp_kernels.so"
 
@@ -45,6 +46,8 @@ _SIGNATURES = {
     # seedP, seedp, rho, AB, H, g, d, k, P, p, K, du, ApBK, Bdu, dj, fail,
     # Mb, Nb, n, m, nf, n_blocks_f, state_reg, use_defect, stream
     "pddp_riccati": (_P,) * 16 + (_I,) * 8 + (_P,),
+    # consts, x, u, qdd, batch, stream
+    "pddp_qdd": (_P, _P, _P, _P, _I, _P),
 }
 
 
@@ -82,20 +85,33 @@ def build() -> tuple[pathlib.Path, float, str]:
     if lib.exists():
         return lib, 0.0, log.read_text() if log.exists() else ""
     out_dir.mkdir(parents=True, exist_ok=True)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC)]
-    cmd += [str(CSRC / s) for s in SOURCES]
-    # build into a temporary name and rename, so a concurrent build or a
+    nvcc = _nvcc()
+    t0 = time.perf_counter()
+    jobs = []
+    for src in SOURCES:
+        cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", str(CSRC / src),
+               "-o", str(out_dir / (src + ".o"))]
+        jobs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                           stderr=subprocess.STDOUT, text=True)))
+    output, failed = "", []
+    for cmd, proc in jobs:
+        out, _ = proc.communicate()
+        output += out
+        if proc.returncode != 0:
+            failed.append(f"exit {proc.returncode}: {' '.join(cmd)}")
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed) + "\n" + output)
+    # link into a temporary name and rename, so a concurrent build or a
     # killed one never leaves a half-written library under the final name
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
     os.close(fd)
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd + ["-o", tmp], capture_output=True, text=True)
+    cmd = [nvcc, "-shared", "-o", tmp] + [str(out_dir / (s + ".o")) for s in SOURCES]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
     seconds = time.perf_counter() - t0
-    output = proc.stdout + proc.stderr
     if proc.returncode != 0:
         os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed (exit {proc.returncode}):\n{' '.join(cmd)}\n{output}")
+        raise RuntimeError(f"nvcc link failed (exit {proc.returncode}):\n"
+                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
     log.write_text(output)
     os.replace(tmp, lib)
     return lib, seconds, output

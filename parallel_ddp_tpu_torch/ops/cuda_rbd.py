@@ -1,10 +1,21 @@
-"""Batched Kuka RBD Jacobian: the CUDA kernel, its plain PyTorch version, and
-the Butcher-stage composer that turns it into the discrete AB.
+"""Batched Kuka rigid-body dynamics: forward dynamics and its Jacobian, each a
+CUDA kernel with its plain PyTorch version, and the Butcher-stage composer
+that turns the Jacobian into the discrete AB.
 
-Twin of `parallel_ddp_tpu/ops/pallas_rbd.py`.  `kuka_jac_qdd(x, u)` returns
+Twin of `parallel_ddp_tpu/ops/pallas_rbd.py`.  `kuka_qdd(x, u)` returns qdd
+(..., 7) for any leading dims:
+  * on CPU tensors, its plain version: the torch soa `forward_dynamics`;
+  * on CUDA tensors, the hand-written kernel `csrc/qdd.cu` (one thread per
+    sample), or it raises.  The kernel has no backward (`kuka_jac_qdd` is
+    its derivative): under autograd or a `torch.func` transform it raises.
+`Plant.dynamics` of the "cuda" core is `kuka_qdd`, so every integrator step
+of the plant (cold rollout, MPC warm start, plant simulator) launches it.
+
+`kuka_jac_qdd(x, u)` returns
 (d qdd / d [x; u] (B, 7, 21), qdd (B, 7)):
-  * on CPU tensors, its plain version: `torch.func.jacfwd` of the torch soa
-    dynamics, vmapped over the batch, plus the primal;
+  * on CPU tensors, its plain version: forward-mode AD of the torch soa
+    dynamics (`torch.autograd.forward_ad`, the 21 unit tangents as a batch
+    dimension), plus the primal;
   * on CUDA tensors, the hand-written kernel `csrc/rbd_jac.cu` (forward mode
     by dual numbers, one thread per (sample, tangent column)), or it raises.
 
@@ -17,6 +28,7 @@ from __future__ import annotations
 import functools
 
 import torch
+import torch.autograd.forward_ad as fwad
 
 from parallel_ddp_tpu_torch.models.kuka import soa
 from parallel_ddp_tpu_torch.ops import build
@@ -34,17 +46,66 @@ def consts_tensor(ee_type: int, gravity: float, device: str) -> torch.Tensor:
                            device=torch.device(device))
 
 
+def kuka_qdd_plain(x, u, ee_type: int = 1, gravity: float = 9.81):
+    """Plain version: the soa forward dynamics, qdd (..., 7)."""
+    return soa.KukaSoA(ee_type=ee_type, gravity=gravity).forward_dynamics(x, u)
+
+
+def kuka_qdd_cuda(x, u, ee_type: int = 1, gravity: float = 9.81):
+    """Launch the forward-dynamics kernel on CUDA tensors x (..., 14),
+    u (..., 7) with the same leading dims; returns qdd (..., 7)."""
+    if torch._C._functorch.is_functorch_wrapped_tensor(x) or \
+            torch._C._functorch.is_functorch_wrapped_tensor(u):
+        raise RuntimeError("kuka_qdd_cuda has no torch.func rule; "
+                           "differentiate through kuka_jac_qdd instead")
+    if torch.is_grad_enabled() and (x.requires_grad or u.requires_grad):
+        raise RuntimeError("kuka_qdd_cuda has no backward; use kuka_jac_qdd")
+    lead = x.shape[:-1]
+    if u.shape[:-1] != lead:
+        raise ValueError(f"x {tuple(x.shape)} and u {tuple(u.shape)} differ in leading dims")
+    xf = x.reshape(-1, _NX).contiguous()
+    uf = u.reshape(-1, N_JOINTS).contiguous()
+    B = xf.shape[0]
+    build.check_input("x", xf, (B, _NX))
+    build.check_input("u", uf, (B, N_JOINTS))
+    if uf.device != xf.device:
+        raise ValueError(f"x on {x.device} but u on {u.device}")
+    qdd = torch.empty((B, N_JOINTS), device=x.device, dtype=torch.float32)
+    cc = consts_tensor(ee_type, float(gravity), str(x.device))
+    lib = build.library()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        status = lib.pddp_qdd(cc.data_ptr(), xf.data_ptr(), uf.data_ptr(),
+                              qdd.data_ptr(), B, stream)
+    build.check(status, "qdd")
+    kuka_qdd_cuda.launches += 1
+    return qdd.reshape(lead + (N_JOINTS,))
+
+
+kuka_qdd_cuda.launches = 0
+
+
+def kuka_qdd(x, u, ee_type: int = 1, gravity: float = 9.81):
+    """Forward dynamics qdd (..., 7) of the Kuka arm: the plain version on
+    CPU tensors, the CUDA kernel on CUDA tensors."""
+    if x.device.type == "cpu" and u.device.type == "cpu":
+        return kuka_qdd_plain(x, u, ee_type, gravity)
+    return kuka_qdd_cuda(x, u, ee_type, gravity)
+
+
 def kuka_jac_qdd_plain(x, u, ee_type: int = 1, gravity: float = 9.81):
-    """Plain version: (jacfwd of the soa qdd (B, 7, 21), primal qdd (B, 7))."""
+    """Plain version: (the soa qdd's Jacobian (B, 7, 21), primal qdd (B, 7)),
+    by forward-mode AD with tangent j of the 21 inputs on leading index j
+    (the same rules as `torch.func.jacfwd`, without its vmap levels)."""
     dyn = soa.KukaSoA(ee_type=ee_type, gravity=gravity).forward_dynamics
-
-    def f(xs, us):
-        out = dyn(xs, us)
-        return out, out
-
-    (jx, ju), qdd = torch.func.vmap(
-        torch.func.jacfwd(f, argnums=(0, 1), has_aux=True))(x, u)
-    return torch.cat([jx, ju], dim=-1), qdd
+    B = x.shape[0]
+    xu = torch.cat([x, u], dim=-1)[None].expand(_NIN, B, _NIN).contiguous()
+    eye = torch.eye(_NIN, dtype=x.dtype, device=x.device)
+    tangents = eye[:, None, :].expand(_NIN, B, _NIN).contiguous()
+    with fwad.dual_level():
+        dual = fwad.make_dual(xu, tangents)
+        qdd, jac = fwad.unpack_dual(dyn(dual[..., :_NX], dual[..., _NX:]))
+    return jac.permute(1, 2, 0), qdd[0]
 
 
 def kuka_jac_qdd_cuda(x, u, ee_type: int = 1, gravity: float = 9.81):

@@ -10,7 +10,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from parallel_ddp_tpu_torch.config import SolverConfig
+from parallel_ddp_tpu_torch.config import CostWeights, SolverConfig
 from parallel_ddp_tpu_torch.costs.base import CostModel
 from parallel_ddp_tpu_torch.costs.ee import (
     KUKA_POS_LIMITS,
@@ -50,7 +50,7 @@ def kuka_ee(num_time_steps=64, total_time=0.5, m_blocks=4, num_alpha=16,
         ee_cost=True, use_smooth_abs=use_smooth_abs, use_limits=use_limits,
     )
     cost = ee_cost(
-        plant.ee_pos, 7, 7, num_time_steps,
+        plant.ee_pos, plant.ee_jac, 7, 7, num_time_steps,
         use_smooth_abs=use_smooth_abs,
         smooth_abs_alpha=cfg.smooth_abs_alpha,
         use_ee_vel=use_ee_vel,
@@ -95,3 +95,13 @@ def figure8_goal(t, total_time=10.0):
     rd = int(np.floor(gnum)) % num
     ru = int(np.ceil(gnum)) % num
     return (1 - frac) * pts[rd] + frac * pts[ru], rep
+
+
+def fig8_weights():
+    """The reference's figure-8 tracking weights (LCM_fig8_examples.cu:47-59,
+    hardware variant: Q_EE1 = QF_EE1 = 300, R_EE = 5e-4, Q_xdEE = QF_xdEE = 10,
+    Q_xEE = QF_xEE = 1)."""
+    return CostWeights(
+        q_ee1=300.0, q_ee2=1e-6, qf_ee1=300.0, qf_ee2=1e-6,
+        r_ee=0.0005, q_xdee=10.0, qf_xdee=10.0, q_xee=1.0, qf_xee=1.0,
+    )

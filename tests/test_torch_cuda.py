@@ -45,6 +45,23 @@ def test_rbd_jac_kernel(dev):
     torch.testing.assert_close(qdd, ref_qdd, rtol=1e-4, atol=1e-5 * float(ref_qdd.abs().max()))
 
 
+@pytest.mark.parametrize("batch", [1, 37, 8192])
+def test_qdd_kernel(dev, batch):
+    rng = np.random.default_rng(batch)
+    x, u = _f32(rng, (batch, 14), 0.5, dev), _f32(rng, (batch, 7), 2.0, dev)
+    before = cuda_rbd.kuka_qdd_cuda.launches
+    qdd = cuda_rbd.kuka_qdd(x, u, 1, 9.81)
+    assert cuda_rbd.kuka_qdd_cuda.launches == before + 1
+    ref = cuda_rbd.kuka_qdd_plain(x, u, 1, 9.81)
+    torch.testing.assert_close(qdd, ref, rtol=1e-4, atol=1e-5 * float(ref.abs().max()))
+    # leading dims, as the plant step on one sample calls it
+    one = cuda_rbd.kuka_qdd(x[0], u[0], 1, 9.81)
+    assert one.shape == (7,)
+    torch.testing.assert_close(one, qdd[0])
+    with pytest.raises(RuntimeError, match="torch.func"):
+        torch.func.vmap(cuda_rbd.kuka_qdd)(x, u)
+
+
 @pytest.mark.parametrize("integrator", [1, 2, 3])
 def test_rollout_kernel(dev, integrator):
     rng = np.random.default_rng(integrator)

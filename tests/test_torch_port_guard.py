@@ -43,7 +43,9 @@ def test_port_has_modules():
     for expected in ("config.py", "solver.py", "presets.py", "interop.py",
                      "models/kuka/soa.py", "ops/cuda_rbd.py",
                      "ops/cuda_rollout.py", "ops/cuda_riccati.py", "ops/build.py",
-                     "parallel/backward.py", "parallel/forward.py", "costs/ee.py"):
+                     "parallel/backward.py", "parallel/forward.py", "costs/ee.py",
+                     "mpc/controls.py", "mpc/driver.py", "mpc/device_loop.py",
+                     "mpc/simulator.py"):
         assert expected in names
 
 

@@ -7,8 +7,12 @@ against the reference, on the same seeded inputs.
     reference's KukaSoA (eager: the jitted soa Jacobian takes minutes to
     compile on the CPU);
   * the hooked AB equals jacfwd of the port's own integrator step;
-  * on a tensor that is not on the CPU the op never falls back to its plain
-    version."""
+  * the forward-dynamics op's plain version vs the reference's Pallas qdd
+    kernel (interpret mode) and soa core;
+  * on a tensor that is not on the CPU the ops never fall back to their plain
+    versions."""
+
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -20,6 +24,7 @@ from parallel_ddp_tpu.models.base import Plant as RefPlant
 from parallel_ddp_tpu.models.kuka.soa import KukaSoA as RefSoA
 from parallel_ddp_tpu.ops.integrators import make_step_jacobian as ref_step_jacobian
 from parallel_ddp_tpu.ops.pallas_rbd import make_ab_composer as ref_composer
+from parallel_ddp_tpu.ops.pallas_rbd import kuka_qdd_pallas
 from parallel_ddp_tpu_torch.models.base import Plant
 from parallel_ddp_tpu_torch.models.kuka import kuka, kuka_params
 from parallel_ddp_tpu_torch.ops import cuda_rbd
@@ -126,3 +131,48 @@ def test_plant_hook_is_batched_and_generic():
     plant = Plant(name="p", n_pos=2, n_ctrl=2, dynamics=_toy_dyn(torch))
     jac = plant.qdd_jacobian()(torch.ones(4), torch.ones(2))
     assert jac.shape == (2, 6)
+
+
+@functools.lru_cache(maxsize=None)
+def _qdd_case(batch):
+    """Seeded inputs, the reference's Pallas kernel (interpret mode) and its
+    soa forward dynamics on them."""
+    rng = np.random.default_rng(100 + batch)
+    x = rng.normal(0, 0.5, (batch, 14)).astype(np.float32)
+    u = rng.normal(0, 2.0, (batch, 7)).astype(np.float32)
+    pallas = np.asarray(kuka_qdd_pallas(jnp.asarray(x), jnp.asarray(u), 1, 0.0, interpret=True))
+    soa_ref = np.asarray(RefSoA(1, 0.0).forward_dynamics(jnp.asarray(x), jnp.asarray(u)))
+    return x, u, pallas, soa_ref
+
+
+@pytest.mark.parametrize("batch", [1, 37])
+def test_qdd_plain_matches_reference(batch):
+    """The forward-dynamics op (CPU: its plain version) against the
+    reference's `kuka_qdd_pallas` and its soa core: the same chain in float32,
+    ulps apart (times cond(M) ~ 1e3 through the Cholesky solve)."""
+    x, u, pallas, soa_ref = _qdd_case(batch)
+    got = cuda_rbd.kuka_qdd(torch.as_tensor(x), torch.as_tensor(u), 1, 0.0)
+    assert got.shape == (batch, 7) and got.dtype == torch.float32
+    for ref in (pallas, soa_ref):
+        np.testing.assert_allclose(got.numpy(), ref, rtol=0, atol=2e-6 * np.abs(ref).max())
+    # leading dims are flattened and restored; the Plant of the "cuda" core
+    # runs this op
+    plant = kuka(kuka_params(mpc_mode=True, core="cuda"))
+    xs, us = torch.as_tensor(x).reshape(batch, 1, 14), torch.as_tensor(u).reshape(batch, 1, 7)
+    torch.testing.assert_close(plant.dynamics(xs, us)[:, 0], got, rtol=0, atol=0)
+    torch.testing.assert_close(plant.dynamics(xs[0, 0], us[0, 0]), got[0], rtol=0, atol=0)
+
+
+def test_qdd_kernel_path_refuses():
+    """Off the CPU the op goes to the kernel path, which refuses what it
+    cannot take; under a torch.func transform or autograd the kernel path
+    raises (it has no derivative rule) instead of falling back."""
+    with pytest.raises(ValueError, match="CUDA"):
+        cuda_rbd.kuka_qdd(torch.zeros((3, 14), device="meta"), torch.zeros((3, 7), device="meta"))
+    with pytest.raises(RuntimeError, match="torch.func"):
+        torch.func.vmap(cuda_rbd.kuka_qdd_cuda)(torch.zeros(2, 14), torch.zeros(2, 7))
+    with pytest.raises(RuntimeError, match="backward"):
+        cuda_rbd.kuka_qdd_cuda(torch.zeros(2, 14, requires_grad=True), torch.zeros(2, 7))
+    with pytest.raises(ValueError, match="leading dims"):
+        cuda_rbd.kuka_qdd_cuda(torch.zeros(2, 14), torch.zeros(3, 7))
+    assert cuda_rbd.kuka_qdd_cuda.launches == 0
