@@ -11,9 +11,14 @@ Phases (each prints one line; any failure exits non-zero):
   2. build   — compiles the CUDA kernels of `parallel_ddp_tpu_torch/csrc`.
   3. kernels — each kernel against its plain PyTorch version on the card, on
                seeded inputs at the main path's shapes, within a stated
-               tolerance; and each one's time against the plain version's
-               (the forward-dynamics kernel at B = 1, the closed loop's
-               shape, and at B = 8192, the batched dynamics benchmark's).
+               tolerance; each one's time against the plain version's and
+               against its roofline bound (the forward-dynamics kernel at
+               B = 1 and at B = 8192, the batched dynamics benchmark's; the
+               simulation chain open loop at T = 63 Euler, 4 x 16 Euler and
+               T = 15 RK3; the Riccati sweep at the Kuka's sizes, on blocks of
+               96 steps, longer than its ring of staged steps, and at n = 4,
+               m = 2, the run-time-size body); the wrappers' host cost per enqueue apart
+               from the kernels' own time (CUDA-graph replay).
   4. solve   — the WAFR Kuka iiwa-14 end-effector solve (N=64, 4+4 blocks,
                16 alphas, Euler, gravity-compensated) with the fused Riccati
                sweep, cold then three warm re-solves along the figure-8 goal;
@@ -25,17 +30,26 @@ Phases (each prints one line; any failure exits non-zero):
   6. fig8    — the figure-8 closed loop of benchmarks/fig8.py through the
                port's MPC controller and device loop: cold start, a 4 s
                settle on the path's start, then the 10 s track at 100 Hz
-               (6-iteration warm solves, 1 kHz Euler plant); every kernel
-               must have launched during it; the average EE error must be
+               (6-iteration warm solves, 1 kHz Euler plant); each of its
+               kernels (all but the single-evaluation forward dynamics) must
+               have launched during it; the average EE error must be
                finite and at most the original CUDA implementation's
                0.0878 m.  Three control steps from the settled state are
                repeated on CPU tensors (plain versions) and must agree with
-               the GPU's; the stages of one control step are timed.
+               the GPU's, as must three steps of the block re-rollout
+               warm start (full_rollout=False), a path of its own with its
+               own launch counts, on which every kernel must have launched
+               (its boundary defects are single forward-dynamics
+               evaluations); the chain's trajectory-runner
+               mode is held against its plain version from the settled
+               state; the stages of one control step are timed, the warm
+               start and the substeps also the way they ran before the chain
+               kernel (one forward-dynamics launch per step).
   7. profile — one torch.profiler run each of a warm solve and a fig-8
                control step: kernel launches, stream syncs, device time and
                the card's busy share.
 Then one JSON line with every kernel's numbers, the card line, and last
-{"ok": true, "device": {...}}.  Takes about 2.5 minutes on an H100.
+{"ok": true, "device": {...}}.  Takes about 3 minutes on an H100.
 
 Imports torch, numpy and the port only (never jax).
 """
@@ -73,7 +87,14 @@ TOL = {
     # the ~2k-operation chain of rbd_jac's primal, ending in the same
     # Cholesky solve (cond(M) ~1e3 amplifies float32 rounding)
     "qdd": (1e-3, 1e-4),
+    # up to 63 dependent integration steps in one thread: measured 2.1e-6
+    # (max |x| ~ 7) at T = 63 Euler on an H100; rounding compounds per step
+    "sim_chain": (1e-5, 2e-6),
 }
+# the card's published peaks (NVIDIA H100 SXM data sheet): HBM3 bytes/s and
+# float32 operations/s outside the tensor cores (the kernels' arithmetic)
+H100_BYTES_PER_S = 3.35e12
+H100_FP32_PER_S = 67e12
 # GPU (kernels) vs CPU (plain versions) solve: the same accept/reject and
 # alpha decisions, and J within this relative tolerance (float32 rounding of
 # two different summation orders over 6 iterations of a chaotic problem)
@@ -93,6 +114,19 @@ FIG8_BAR_M = 0.0878       # the original CUDA implementation's average EE error
 # (float32 rounding of two summation orders through 3 solves and 30 substeps)
 FIG8_CPU_STEPS = 3
 FIG8_ERR_ATOL = 1e-4
+# forward-dynamics-family launches (qdd + chain) allowed per control step
+FIG8_QDD_FAMILY_MAX = 3
+# the paths driven, each with the launch counters zeroed just before it and
+# read just after, and the kernels each must launch
+PATH_KERNELS = {
+    "wafr_solve": ("rbd_jac", "rollout", "riccati", "sim_chain"),
+    "fig8": ("rbd_jac", "rollout", "riccati", "sim_chain"),
+    "fig8_block_rerollout": ("rbd_jac", "rollout", "riccati", "qdd", "sim_chain"),
+}
+# the path whose count is a kernel's `launches` in the kernels line: the fig-8
+# closed loop, and for the kernel it does not run, the block re-rollout loop
+LAUNCHES_FROM = {"rbd_jac": "fig8", "rollout": "fig8", "riccati": "fig8", "sim_chain": "fig8",
+                 "qdd": "fig8_block_rerollout"}
 
 
 def fail(msg):
@@ -116,8 +150,11 @@ def ptxas_summary(log):
     for ln in log.splitlines():
         m = re.search(r"Compiling entry function '_Z(\d+)(\w+)'", ln)
         if m:
-            name = m.group(2)[: int(m.group(1))]
-        elif name and ("spill" in ln or "registers" in ln):
+            name, rest = m.group(2)[: int(m.group(1))], m.group(2)[int(m.group(1)):]
+            targs = re.match(r"I((?:Li\d+E)+)E", rest)
+            if targs:
+                name += "<" + ",".join(re.findall(r"Li(\d+)E", targs.group(1))) + ">"
+        elif name and ("spill" in ln or "registers" in ln or "smem" in ln):
             out.append(f"{name}: {ln.split('info    :')[-1].strip()}")
     return out
 
@@ -136,6 +173,76 @@ def cuda_ms(fn, reps, warmup=2):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def host_and_kernel_us(fn, enqueues, graph_launches=20, replays=10):
+    """(host us per enqueue, kernel us per launch) of fn, a wrapper call.
+    Host: the host clock around `enqueues` back-to-back calls with no sync
+    (what the wrapper costs the Python loop).  Kernel: CUDA events around
+    replays of a CUDA graph that captured `graph_launches` calls (no host
+    work between the launches; includes the graph's own gap between nodes)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(enqueues):
+        fn()
+    host_us = (time.perf_counter() - t0) / enqueues * 1e6
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(graph_launches):
+            fn()
+    graph.replay()
+    kernel_us = cuda_ms(graph.replay, replays, warmup=1) / graph_launches * 1e3
+    return host_us, kernel_us
+
+
+def count_ops(fn):
+    """Floating-point operations of one call of fn (a plain PyTorch version,
+    which repeats its kernel's arithmetic): every arithmetic aten call it
+    dispatches counts one operation per output element, a matrix product two
+    per multiply-add."""
+    import math
+
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    pointwise = {"add", "sub", "rsub", "mul", "div", "neg", "sin", "cos", "sqrt", "rsqrt",
+                 "reciprocal", "pow", "square", "abs", "addcmul", "addcdiv", "atan2"}
+
+    class Counter(TorchDispatchMode):
+        ops = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            name = func.overloadpacket.__name__.rstrip("_")
+            if name in pointwise and isinstance(out, torch.Tensor):
+                self.ops += out.numel()
+            elif name in ("mm", "bmm", "mv", "dot", "addmm", "baddbmm", "addmv"):
+                a = args[-2]            # the left factor: its last dim is contracted
+                self.ops += 2 * out.numel() * a.shape[-1]
+            elif name in ("sum", "linalg_vector_norm") and isinstance(args[0], torch.Tensor):
+                self.ops += args[0].numel()
+            return out
+
+    with Counter() as c:
+        fn()
+    assert math.isfinite(c.ops)
+    return c.ops
+
+
+def roofline(inputs, outputs, ops):
+    """bound_ms and what bounds it: each input byte read once and each output
+    byte written once over the card's memory rate, against the operations
+    over its float32 peak."""
+    nbytes = sum(t.numel() * t.element_size() for t in list(inputs) + list(outputs))
+    by_bytes = nbytes / H100_BYTES_PER_S * 1e3
+    by_ops = ops / H100_FP32_PER_S * 1e3
+    return dict(bound_ms=max(by_bytes, by_ops),
+                bound_by="bytes" if by_bytes >= by_ops else "operations",
+                bytes=nbytes, operations=ops, library_ms=None)
 
 
 def count_syncs(torch, fn):
@@ -193,7 +300,7 @@ def compare(name, got, ref):
 def kernel_phase(torch, np, dev):
     """Each kernel vs its plain version at the main path's shapes."""
     from parallel_ddp_tpu_torch.config import SolverConfig
-    from parallel_ddp_tpu_torch.ops import cuda_rbd, cuda_riccati, cuda_rollout
+    from parallel_ddp_tpu_torch.ops import cuda_rbd, cuda_riccati, cuda_rollout, cuda_sim_chain
 
     rng = np.random.default_rng(0)
     f32 = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev)
@@ -211,7 +318,8 @@ def kernel_phase(torch, np, dev):
         name="rbd_jac", route="cuda", source="parallel_ddp_tpu_torch/csrc/rbd_jac.cu",
         replaces="parallel_ddp_tpu/ops/pallas_rbd.py:48", max_abs_err=err, ok=ok,
         ms=cuda_ms(lambda: cuda_rbd.kuka_jac_qdd_cuda(x, u, 1, 0.0), 50),
-        plain_ms=cuda_ms(lambda: cuda_rbd.kuka_jac_qdd_plain(x, u, 1, 0.0), 5)))
+        plain_ms=cuda_ms(lambda: cuda_rbd.kuka_jac_qdd_plain(x, u, 1, 0.0), 5),
+        **roofline((x, u), got, count_ops(lambda: cuda_rbd.kuka_jac_qdd_plain(x, u, 1, 0.0)))))
 
     # -- fused rollout: 16 alphas x 4 blocks, Nf = 16; Euler, plus one RK3 case
     x_sw = f32(rng.normal(0, 0.3, (A, N, nx)))
@@ -239,36 +347,75 @@ def kernel_phase(torch, np, dev):
         replaces="parallel_ddp_tpu/ops/pallas_rollout.py:76", max_abs_err=rollout_err,
         ok=rollout_ok,
         ms=cuda_ms(lambda: cuda_rollout.kuka_rollout_cuda(*ro_args, **ro_kw), 50),
-        plain_ms=cuda_ms(lambda: cuda_rollout.kuka_rollout_plain(*ro_args, **ro_kw), 3)))
+        plain_ms=cuda_ms(lambda: cuda_rollout.kuka_rollout_plain(*ro_args, **ro_kw), 3),
+        **roofline(ro_args, got, count_ops(
+            lambda: cuda_rollout.kuka_rollout_plain(*ro_args, **ro_kw)))))
 
-    # -- fused Riccati: 4 lanes x 16 steps, n = 14, m = 7, synthetic SPD inputs
-    cfg = SolverConfig(num_time_steps=N, m_blocks_b=M, m_blocks_f=M, num_alpha=A)
-    nm = nx + nu
-    C = rng.normal(0, 0.3, (N, nm, nm))
-    H = f32(np.einsum("kij,klj->kil", C, C) + np.eye(nm)).reshape(M, N // M, nm, nm)
-    Cp = rng.normal(0, 0.3, (M, nx, nx))
-    seeds_P = f32(np.einsum("kij,klj->kil", Cp, Cp) + np.eye(nx))
-    seeds_p = f32(rng.normal(0, 0.5, (M, nx)))
-    AB = np.concatenate([rng.normal(0, 0.3, (N - 1, nx, nm)), np.zeros((1, nx, nm))])
-    AB = f32(AB).reshape(M, N // M, nx, nm)
-    g = f32(rng.normal(0, 0.5, (M, N // M, nm)))
-    d = f32(rng.normal(0, 0.1, (M, N // M, nx)))
-    k_blk = torch.arange(N, device=dev).reshape(M, N // M)
-    rho = torch.full((), 1.0, device=dev)
+    # -- fused Riccati on synthetic SPD inputs: 4 lanes x 16 steps at the
+    #    Kuka's sizes (the compile-time-size body), 2 lanes x 96 steps at the
+    #    same sizes (more steps than the ring's 73 slots: the slots of finished
+    #    steps are refilled) and 4 lanes x 4 steps at n = 4, m = 2 (the
+    #    run-time-size body), each against run_block
+    def riccati_case(n_steps, n_x, n_u, M=M):
+        cfg = SolverConfig(num_time_steps=n_steps, m_blocks_b=M, m_blocks_f=4, num_alpha=A)
+        nb, nm = n_steps // M, n_x + n_u
+        C = rng.normal(0, 0.3, (n_steps, nm, nm))
+        H = f32(np.einsum("kij,klj->kil", C, C) + np.eye(nm)).reshape(M, nb, nm, nm)
+        Cp = rng.normal(0, 0.3, (M, n_x, n_x))
+        seeds_P = f32(np.einsum("kij,klj->kil", Cp, Cp) + np.eye(n_x))
+        seeds_p = f32(rng.normal(0, 0.5, (M, n_x)))
+        AB = np.concatenate([rng.normal(0, 0.3, (n_steps - 1, n_x, nm)), np.zeros((1, n_x, nm))])
+        AB = f32(AB).reshape(M, nb, n_x, nm)
+        g = f32(rng.normal(0, 0.5, (M, nb, nm)))
+        d = f32(rng.normal(0, 0.1, (M, nb, n_x)))
+        k_blk = torch.arange(n_steps, device=dev).reshape(M, nb)
+        rho = torch.full((), 1.0, device=dev)
+        return cfg, (rho, seeds_P, seeds_p, AB, H, g, d, k_blk)
+
+    ric_err, ric_ok = 0.0, True
+    for label, (n_steps, n_x, n_u), lanes in (
+            ("n=14 m=7, 4 lanes x 16 steps, all staged", (N, nx, nu), M),
+            ("n=14 m=7, 2 lanes x 96 steps, ring refilled", (192, nx, nu), 2),
+            ("n=4 m=2, run-time sizes", (16, 4, 2), M)):
+        cfg, args = riccati_case(n_steps, n_x, n_u, lanes)
+        kw = dict(nf=n_steps - 1, n_blocks_f=cfg.n_blocks_f, state_reg=cfg.state_reg,
+                  use_defect=True)
+        got = cuda_riccati.riccati_cuda(*args, **kw)
+        bp = cuda_riccati.make_riccati_block_call(cfg, n_x, n_u)
+        ref = bp(*[a.cpu() for a in args])    # plain version (run_block) on CPU tensors
+        if bool(got[7]) or bool(ref[7]):
+            fail(f"riccati {label}: synthetic SPD inputs reported a Cholesky failure")
+        e, o = compare("riccati", got[:7], [r.to(dev) for r in ref[:7]])
+        print(f"kernels: riccati {label}: max_abs_err {e:.3e} "
+              f"({'ok' if o else 'OUT OF TOLERANCE'})", flush=True)
+        ric_err, ric_ok = max(ric_err, e), ric_ok and o
+    cfg, args = riccati_case(N, nx, nu)
     bp = cuda_riccati.make_riccati_block_call(cfg, nx, nu)
-    args = (rho, seeds_P, seeds_p, AB, H, g, d, k_blk)
     got = bp(*args)
-    ref = bp(*[a.cpu() for a in args])        # plain version on CPU tensors
-    if bool(got[7]) or bool(ref[7]):
-        fail("riccati: synthetic SPD inputs reported a Cholesky failure")
-    err, ok = compare("riccati", got[:7], [r.to(dev) for r in ref[:7]])
     step = cuda_riccati.make_riccati_step(cfg, nx, nu)
+    plain = lambda: cuda_riccati.run_block(step, args[0].expand(M), *args[1:])
+    host_us, kernel_us = host_and_kernel_us(lambda: bp(*args), 1000)
+    print(f"kernels: riccati wrapper: host {host_us:.2f} us per enqueue (1000 enqueues, no "
+          f"sync); kernel alone {kernel_us:.2f} us (CUDA-graph replay)", flush=True)
+    # what the kernel's time is made of: a fixed part (launch, first slot) and
+    # a per-step part (4 block barriers and the one-warp Cholesky per step)
+    per_nb = {}
+    for nb in (4, 8, 16):
+        _, a_nb = riccati_case(M * nb, nx, nu)
+        bp_nb = cuda_riccati.make_riccati_block_call(
+            SolverConfig(num_time_steps=M * nb, m_blocks_b=M, m_blocks_f=M, num_alpha=A), nx, nu)
+        per_nb[nb] = host_and_kernel_us(lambda: bp_nb(*a_nb), 10)[1]
+    per_step = (per_nb[16] - per_nb[4]) / 12
+    print(f"kernels: riccati kernel alone at 4/8/16 steps per lane: "
+          f"{per_nb[4]:.2f}/{per_nb[8]:.2f}/{per_nb[16]:.2f} us = "
+          f"{per_nb[16] - 16 * per_step:.2f} us fixed + {per_step:.3f} us per step "
+          f"(4 block barriers per step)", flush=True)
     results.append(dict(
         name="riccati", route="cuda", source="parallel_ddp_tpu_torch/csrc/riccati.cu",
-        replaces="parallel_ddp_tpu/ops/pallas_riccati.py:137", max_abs_err=err, ok=ok,
-        ms=cuda_ms(lambda: bp(*args), 50),
-        plain_ms=cuda_ms(lambda: cuda_riccati.run_block(
-            step, rho.expand(M), seeds_P, seeds_p, AB, H, g, d, k_blk), 3)))
+        replaces="parallel_ddp_tpu/ops/pallas_riccati.py:137", max_abs_err=ric_err, ok=ric_ok,
+        ms=cuda_ms(lambda: bp(*args), 50), plain_ms=cuda_ms(plain, 3),
+        host_us=host_us, kernel_us=kernel_us, kernel_us_per_step=per_step,
+        **roofline(args, got, count_ops(plain))))
 
     # -- forward dynamics: one sample (every plant / warm-start step of the
     #    closed loop) and the batched dynamics benchmark's 8192
@@ -277,8 +424,8 @@ def kernel_phase(torch, np, dev):
     for B in QDD_BATCHES:
         x = f32(rng.normal(0, 0.5, (B, nx)))
         u = f32(rng.normal(0, 2.0, (B, nu)))
-        err, ok = compare("qdd", [cuda_rbd.kuka_qdd_cuda(x, u, 1, 0.0)],
-                          [cuda_rbd.kuka_qdd_plain(x, u, 1, 0.0)])
+        got = cuda_rbd.kuka_qdd_cuda(x, u, 1, 0.0)
+        err, ok = compare("qdd", [got], [cuda_rbd.kuka_qdd_plain(x, u, 1, 0.0)])
         ms = cuda_ms(lambda: cuda_rbd.kuka_qdd_cuda(x, u, 1, 0.0), 200)
         plain_ms = cuda_ms(lambda: cuda_rbd.kuka_qdd_plain(x, u, 1, 0.0), 10)
         print(f"kernels: qdd B={B}: max_abs_err {err:.3e} ({'ok' if ok else 'OUT OF TOLERANCE'}); "
@@ -287,15 +434,55 @@ def kernel_phase(torch, np, dev):
         qdd["ok"] = qdd["ok"] and ok
         if B == QDD_BATCHES[0]:
             qdd["ms"], qdd["plain_ms"] = ms, plain_ms
+            qdd.update(roofline((x, u), [got], count_ops(
+                lambda: cuda_rbd.kuka_qdd_plain(x, u, 1, 0.0))))
+            qdd["host_us"], qdd["kernel_us"] = host_and_kernel_us(
+                lambda: cuda_rbd.kuka_qdd_cuda(x, u, 1, 0.0), 1000)
+            print(f"kernels: qdd B=1 wrapper: host {qdd['host_us']:.2f} us per enqueue (1000 "
+                  f"enqueues, no sync); kernel alone {qdd['kernel_us']:.2f} us (CUDA-graph "
+                  f"replay)", flush=True)
         else:
             qdd[f"ms_b{B}"], qdd[f"plain_ms_b{B}"] = ms, plain_ms
     results.append(qdd)
+
+    # -- simulation chain, open loop: the MPC warm start's 63 Euler steps from
+    #    one state, the cold rollout's 4 blocks x 16 Euler steps, and 15 RK3
+    #    steps; the plain version is the step repeated in a Python loop
+    chain = dict(name="sim_chain", route="cuda",
+                 source="parallel_ddp_tpu_torch/csrc/sim_chain.cu",
+                 replaces="parallel_ddp_tpu/ops/pallas_rbd.py:39", max_abs_err=0.0, ok=True)
+    for label, integ, lead, T in (("warm start", 1, (), N - 1), ("cold rollout", 1, (M,), N // M),
+                                  ("rk3", 3, (), 15)):
+        x0 = f32(rng.normal(0, 0.3, lead + (nx,)))
+        u = f32(rng.normal(0, 1.0, lead + (T, nu)))
+        kw = dict(ee_type=1, gravity=0.0, integrator=integ, dt=dt)
+        step = cuda_rollout._kuka_step(1, 0.0, integ, dt)
+        call = lambda: cuda_sim_chain.kuka_open_loop_cuda(x0, u, **kw)
+        plain = lambda: cuda_sim_chain.open_loop_plain(step, x0, u)
+        got = call()
+        err, ok = compare("sim_chain", [got], [plain()])
+        ms, plain_ms = cuda_ms(call, 50), cuda_ms(plain, 1, warmup=0)
+        host_us, kernel_us = host_and_kernel_us(call, 500)
+        print(f"kernels: sim_chain {label} (integrator {integ}, {lead or (1,)} x T={T}): "
+              f"max_abs_err {err:.3e} ({'ok' if ok else 'OUT OF TOLERANCE'}); {ms:.4f} ms vs "
+              f"plain {plain_ms:.3f} ms; host {host_us:.2f} us per enqueue (500 enqueues), "
+              f"kernel alone {kernel_us:.2f} us ({kernel_us / T:.3f} us per step)", flush=True)
+        chain["max_abs_err"] = max(chain["max_abs_err"], err)
+        chain["ok"] = chain["ok"] and ok
+        if label == "warm start":
+            chain.update(ms=ms, plain_ms=plain_ms, host_us=host_us, kernel_us=kernel_us,
+                         **roofline((x0, u), [got], count_ops(plain)))
+        else:
+            chain[f"ms_{label.replace(' ', '_')}"] = ms
+    results.append(chain)
 
     for r in results:
         print(f"kernels: {r['name']}: max_abs_err {r['max_abs_err']:.3e} "
               f"(rtol {TOL[r['name']][0]:g}, atol {TOL[r['name']][1]:g} x max|plain|) "
               f"{'ok' if r['ok'] else 'OUT OF TOLERANCE'}; "
-              f"{r['ms']:.4f} ms vs plain {r['plain_ms']:.3f} ms", flush=True)
+              f"{r['ms']:.4f} ms vs plain {r['plain_ms']:.3f} ms; bound {r['bound_ms']:.3e} ms "
+              f"by {r['bound_by']} ({r['bytes']} B, {r['operations']} operations); "
+              f"library call: none computes this function", flush=True)
     bad = [r["name"] for r in results if not r["ok"]]
     if bad:
         fail(f"kernels disagree with their plain versions: {bad}")
@@ -303,20 +490,30 @@ def kernel_phase(torch, np, dev):
 
 
 def counters():
-    """Each kernel's wrapper, whose `launches` counts its kernel launches."""
-    from parallel_ddp_tpu_torch.ops import cuda_rbd, cuda_riccati, cuda_rollout
+    """Each kernel's wrappers, whose `launches` count its kernel launches
+    (the chain kernel has one wrapper per mode)."""
+    from parallel_ddp_tpu_torch.ops import cuda_rbd, cuda_riccati, cuda_rollout, cuda_sim_chain
 
-    return {"rbd_jac": cuda_rbd.kuka_jac_qdd_cuda, "rollout": cuda_rollout.kuka_rollout_cuda,
-            "riccati": cuda_riccati.riccati_cuda, "qdd": cuda_rbd.kuka_qdd_cuda}
+    return {"rbd_jac": (cuda_rbd.kuka_jac_qdd_cuda,), "rollout": (cuda_rollout.kuka_rollout_cuda,),
+            "riccati": (cuda_riccati.riccati_cuda,), "qdd": (cuda_rbd.kuka_qdd_cuda,),
+            "sim_chain": (cuda_sim_chain.kuka_open_loop_cuda, cuda_sim_chain.kuka_runner_cuda)}
 
 
 def reset_counts():
-    for c in counters().values():
-        c.launches = 0
+    for wrappers in counters().values():
+        for w in wrappers:
+            w.launches = 0
 
 
 def read_counts():
-    return {name: c.launches for name, c in counters().items()}
+    return {name: sum(w.launches for w in wrappers) for name, wrappers in counters().items()}
+
+
+def require_launched(path, counts):
+    """Fail if a kernel of `path` was launched no time in that path's run."""
+    idle = [k for k in PATH_KERNELS[path] if counts[k] <= 0]
+    if idle:
+        fail(f"{path}: kernels of this path never launched: {idle} ({counts})")
 
 
 def solve_phase(torch, np, dev):
@@ -354,8 +551,9 @@ def solve_phase(torch, np, dev):
     launches = read_counts()
     print(f"solve: kernel launches during the cold + {N_WARM} warm solves: "
           f"{json.dumps(launches)}", flush=True)
-    if min(launches.values()) <= 0:
-        fail(f"a kernel of the main path never launched: {launches}")
+    # the solve's kernels: its cold rollout is one chain launch, so the
+    # single-evaluation qdd kernel is not on this path
+    require_launched("wafr_solve", launches)
 
     for i, out in enumerate(outs):
         jt = out.J_trace.cpu().numpy()[: out.iters + 1]
@@ -372,7 +570,8 @@ def solve_phase(torch, np, dev):
 
     # the same cold solve on CPU tensors: the plain versions of every kernel
     cpu = make_ilqr_solver(prob.plant, prob.cost, cfg)(
-        torch.as_tensor(x0), torch.as_tensor(u0), ee_goal(goals[0]), initial_rollout=True)
+        torch.as_tensor(x0), torch.as_tensor(u0), ee_goal(goals[0], device="cpu"),
+        initial_rollout=True)
     gj = outs[0].J_trace.cpu().numpy()[: outs[0].iters + 1]
     cj = cpu.J_trace.numpy()[: cpu.iters + 1]
     ga = outs[0].alpha_trace.cpu().numpy()[: outs[0].iters + 1]
@@ -437,6 +636,8 @@ def fig8_phase(torch, np, dev, card):
     steps from the settled state on the GPU and on the CPU."""
     from parallel_ddp_tpu_torch.mpc.device_loop import make_device_mpc_loop
     from parallel_ddp_tpu_torch.mpc.driver import MPCConfig, MPCController, MPCState
+    from parallel_ddp_tpu_torch.ops import cuda_rollout, cuda_sim_chain
+    from parallel_ddp_tpu_torch.ops.integrators import make_step
     from parallel_ddp_tpu_torch.presets import fig8_weights, kuka_ee
     from parallel_ddp_tpu_torch.solver import _derivatives
 
@@ -486,9 +687,12 @@ def fig8_phase(torch, np, dev, card):
         print(f"fig8: CUT: the track is shortened to {n_run} of {n_track} control steps "
               f"({n_run * FIG8_PERIOD:g} s of {FIG8_TRACK_S:g} s) at {ms_settle:.1f} ms per step",
               flush=True)
+    before_track = read_counts()
     st, x, t, track, track_wall, track_syncs = run_steps(
         st, x, t, {k: v[:n_run] for k, v in goals_track.items()}, n_run)
-    launches = read_counts()
+    fig8_counts = read_counts()           # this path's own: init + settle + track
+    per_step = {k: (fig8_counts[k] - before_track[k]) / n_run for k in fig8_counts}
+    qdd_family = per_step["qdd"] + per_step["sim_chain"]
 
     errs = track["ee_err"].cpu().numpy()
     settle_errs = settle["ee_err"].cpu().numpy()
@@ -502,23 +706,79 @@ def fig8_phase(torch, np, dev, card):
           f"(bar {FIG8_BAR_M} m); ok rate {ok_rate:.3f}; accept rate "
           f"{float(track['accepted'].float().mean()):.3f}; host syncs per control step "
           f"{track_syncs / n_run:.2f}", flush=True)
-    print(f"fig8: kernel launches during init + settle + track: {json.dumps(launches)}",
-          flush=True)
+    print(f"fig8: kernel launches during init + settle + track: {json.dumps(fig8_counts)}; per "
+          f"control step on the track: {json.dumps(per_step)}; forward-dynamics family (qdd + "
+          f"sim_chain): {qdd_family:.2f}", flush=True)
     if not (np.all(np.isfinite(errs)) and np.all(np.isfinite(settle_errs))):
         fail("fig8: non-finite EE error")
     if float(np.mean(errs)) > FIG8_BAR_M:
         fail(f"fig8: average EE error {float(np.mean(errs)):.4f} m above {FIG8_BAR_M} m")
-    if min(launches.values()) <= 0:
-        fail(f"fig8: a kernel of the closed loop never launched: {launches}")
+    require_launched("fig8", fig8_counts)
+    if qdd_family > FIG8_QDD_FAMILY_MAX:
+        fail(f"fig8: {qdd_family:.2f} forward-dynamics-family launches per control step "
+             f"(at most {FIG8_QDD_FAMILY_MAX})")
 
-    # the stages of one control step, from the settled state
+    # from the settled state: control steps on the GPU and the CPU, then
+    # the stages of one control step; the warm-start
+    # rollout and the substeps also the way they ran before the chain kernel
+    # (a Python loop with one forward-dynamics launch per step)
     st0, x0, t0 = settled
     goal0 = {k: v[0] for k, v in goals_track.items()}
     ks = torch.arange(cfg.num_time_steps, device=dev)
     s0 = torch.zeros((), dtype=torch.int32, device=dev)
     t0_dev = torch.full((), t0, dtype=torch.float32, device=dev)   # no copy from the host
+
+    def gpu_vs_cpu(label, loop):
+        """FIG8_CPU_STEPS control steps from the settled state on the GPU and
+        on CPU tensors (the plain versions): they must agree."""
+        seg = {k: v[:FIG8_CPU_STEPS] for k, v in goals_track.items()}
+        loop(st0, x0, t0_dev, {k: v[:1] for k, v in seg.items()}, w)   # first-use work
+        gpu, torch_syncs = count_syncs(torch, lambda: loop(st0, x0, t0_dev, seg, w))
+        cpu = loop(MPCState(*(a.cpu() for a in st0)), x0.cpu(), t0,
+                   {k: v.cpu() for k, v in seg.items()}, w)
+        g_err, c_err = gpu.ee_err.cpu().numpy(), cpu.ee_err.numpy()
+        g_j, c_j = gpu.J.cpu().numpy(), cpu.J.numpy()
+        g_acc, c_acc = gpu.accepted.cpu().numpy(), cpu.accepted.numpy()
+        print(f"fig8: {label}: {FIG8_CPU_STEPS} steps from the settled state: GPU EE error "
+              f"{g_err.tolist()} J {g_j.tolist()} accepted {g_acc.tolist()}; CPU EE error "
+              f"{c_err.tolist()} J {c_j.tolist()} accepted {c_acc.tolist()}; host syncs "
+              f"{gpu.host_syncs} (torch sync-debug count {torch_syncs})", flush=True)
+        if not (np.array_equal(g_acc, c_acc) and np.allclose(g_j, c_j, rtol=SOLVE_RTOL, atol=0.0)
+                and np.allclose(g_err, c_err, rtol=0.0, atol=FIG8_ERR_ATOL)):
+            fail(f"fig8: {label}: GPU and CPU control steps disagree (J rtol {SOLVE_RTOL}, "
+                 f"EE error atol {FIG8_ERR_ATOL} m)")
+        if torch_syncs > gpu.host_syncs:
+            fail(f"fig8: {label}: torch reports {torch_syncs} stream syncs, more than the "
+                 f"solver's {gpu.host_syncs} exit-flag reads")
+        print(f"fig8: {label}: GPU and CPU agree (same accepts, J within rtol {SOLVE_RTOL}, EE "
+              f"error within {FIG8_ERR_ATOL} m)", flush=True)
+
+    gpu_vs_cpu("full re-rollout", run)
+    # a path of its own: the block re-rollout warm start (full_rollout=False),
+    # the first block by the chain, the two boundary defects by single steps
+    # of the qdd kernel; 1 + FIG8_CPU_STEPS control steps on the card
+    ctrl_blk = MPCController(prob.plant, prob.cost, cfg,
+                             MPCConfig(max_iters_per_solve=N_ITERS, full_rollout=False))
+    run_blk = make_device_mpc_loop(ctrl_blk, sim_rate_hz=FIG8_SIM_HZ,
+                                   control_period_s=FIG8_PERIOD, sim_integrator=1)
+    reset_counts()
+    gpu_vs_cpu("block re-rollout", run_blk)
+    blk_counts = read_counts()
+    n_blk = 1 + FIG8_CPU_STEPS
+    print(f"fig8: block re-rollout: kernel launches during its {n_blk} control steps on the "
+          f"card: {json.dumps(blk_counts)}; per control step: "
+          f"{json.dumps({k: v / n_blk for k, v in blk_counts.items()})}", flush=True)
+    require_launched("fig8_block_rerollout", blk_counts)
+
     one_goal = {k: v[:1] for k, v in goals_track.items()}
     control_step = lambda: run(st0, x0, t0_dev, one_goal, w)
+    n_sub = int(round(FIG8_PERIOD * FIG8_SIM_HZ))
+    sim_dt = 1.0 / FIG8_SIM_HZ
+    sim_chain = cuda_sim_chain.make_sim_chain(prob.plant, 1, sim_dt)
+    runner_args = (st0.x, st0.u, st0.K, st0.t0, cfg.dt, t0_dev, x0, n_sub)
+    plan_step = make_step(prob.plant, cfg.integrator, cfg.dt)      # one qdd launch per step
+    plant_step = make_step(prob.plant, 1, sim_dt)
+    u_roll = st0.u[:cfg.num_time_steps - 1]
     stage_ms = {
         "control step (a 1-step loop call)": cuda_ms(control_step, 10),
         "MPC step (warm start + solve)": cuda_ms(lambda: ctrl.step(st0, x0, t0_dev, goal0, w), 10),
@@ -528,31 +788,35 @@ def fig8_phase(torch, np, dev, card):
         "EE Jacobian": cuda_ms(lambda: prob.plant.ee_jac(st0.x[:, :7]), 20),
         "EE pose": cuda_ms(lambda: prob.plant.ee_pos(st0.x[:, :7]), 20),
         "AB": cuda_ms(lambda: ctrl._solver.step_jac(st0.x[:-1], st0.u[:-1]), 20),
-        "warm-start rollout (63 steps)": cuda_ms(lambda: ctrl._warm_start(st0, x0, s0), 5),
+        "warm start (shift + 63-step chain)": cuda_ms(lambda: ctrl._warm_start(st0, x0, s0), 20),
+        "63-step rollout, chain kernel": cuda_ms(
+            lambda: ctrl._chain.open_loop(x0, u_roll), 20),
+        "63-step rollout, one launch per step (as before)": cuda_ms(
+            lambda: cuda_sim_chain.open_loop_plain(plan_step, x0, u_roll), 5),
+        f"{n_sub} substeps, chain kernel": cuda_ms(lambda: sim_chain.runner(*runner_args), 20),
+        f"{n_sub} substeps, control law + one launch per step (as before)": cuda_ms(
+            lambda: cuda_sim_chain.runner_plain(plant_step, sim_dt, *runner_args), 5),
     }
     print("fig8: ms per call: " + "; ".join(f"{k} {v:.3f}" for k, v in stage_ms.items()),
           flush=True)
 
-    # FIG8_CPU_STEPS control steps from the settled state, on the GPU (with
-    # torch's own sync count) and on CPU tensors (the plain versions)
-    seg = {k: v[:FIG8_CPU_STEPS] for k, v in goals_track.items()}
-    gpu, torch_syncs = count_syncs(torch, lambda: run(st0, x0, t0_dev, seg, w))
-    cpu = run(MPCState(*(a.cpu() for a in st0)), x0.cpu(), t0,
-              {k: v.cpu() for k, v in seg.items()}, w)
-    g_err, c_err = gpu.ee_err.cpu().numpy(), cpu.ee_err.numpy()
-    g_j, c_j = gpu.J.cpu().numpy(), cpu.J.numpy()
-    g_acc, c_acc = gpu.accepted.cpu().numpy(), cpu.accepted.numpy()
-    print(f"fig8: {FIG8_CPU_STEPS} steps from the settled state: GPU EE error {g_err.tolist()} "
-          f"J {g_j.tolist()} accepted {g_acc.tolist()}; CPU EE error {c_err.tolist()} "
-          f"J {c_j.tolist()} accepted {c_acc.tolist()}; host syncs {gpu.host_syncs} "
-          f"(torch sync-debug count {torch_syncs})", flush=True)
-    if not (np.array_equal(g_acc, c_acc) and np.allclose(g_j, c_j, rtol=SOLVE_RTOL, atol=0.0)
-            and np.allclose(g_err, c_err, rtol=0.0, atol=FIG8_ERR_ATOL)):
-        fail(f"fig8: GPU and CPU control steps disagree (J rtol {SOLVE_RTOL}, "
-             f"EE error atol {FIG8_ERR_ATOL} m)")
-    print(f"fig8: GPU and CPU agree (same accepts, J within rtol {SOLVE_RTOL}, EE error "
-          f"within {FIG8_ERR_ATOL} m)", flush=True)
-    return launches, control_step
+    # the chain's trajectory-runner mode against its plain version (control
+    # law + soa step in a Python loop) on the card, from the settled state
+    plain_step = cuda_rollout._kuka_step(1, 0.0, 1, sim_dt)
+    got_x, got_t = sim_chain.runner(*runner_args)
+    ref_x, ref_t = cuda_sim_chain.runner_plain(plain_step, sim_dt, *runner_args)
+    err, ok = compare("sim_chain", [got_x, got_t], [ref_x, ref_t])
+    host_us, kernel_us = host_and_kernel_us(lambda: sim_chain.runner(*runner_args), 1000)
+    runner = dict(max_abs_err=err, ok=ok, ms_runner=stage_ms[f"{n_sub} substeps, chain kernel"],
+                  host_us_runner=host_us, kernel_us_runner=kernel_us)
+    print(f"fig8: sim_chain runner ({n_sub} substeps from the settled state): max_abs_err "
+          f"{err:.3e} ({'ok' if ok else 'OUT OF TOLERANCE'}); host {host_us:.2f} us per enqueue "
+          f"(1000 enqueues, no sync), kernel alone {kernel_us:.2f} us (CUDA-graph replay)",
+          flush=True)
+    if not ok:
+        fail("fig8: the chain's runner mode disagrees with its plain version")
+
+    return {"fig8": fig8_counts, "fig8_block_rerollout": blk_counts}, control_step, runner
 
 
 def main():
@@ -588,19 +852,28 @@ def main():
     kernels = kernel_phase(torch, np, dev)
     solver, cold, goal, launches = solve_phase(torch, np, dev)
     median_ms, warm_solve = timing_phase(torch, np, dev, solver, cold, goal)
-    fig8_launches, control_step = fig8_phase(torch, np, dev, card)
+    fig8_launches, control_step, runner = fig8_phase(torch, np, dev, card)
+    chain = next(r for r in kernels if r["name"] == "sim_chain")
+    chain["max_abs_err"] = max(chain["max_abs_err"], runner.pop("max_abs_err"))
+    chain["ok"] = chain["ok"] and runner.pop("ok")
+    chain.update(runner)
     # last: once the profiler has attached to the card, launches may cost
     # more for the rest of the process
     profile_line(torch, f"warm {N_ITERS}-iteration solve", warm_solve)
     profile_line(torch, "fig-8 control step", control_step)
 
-    # launches: the fig-8 closed loop's counts; launches_wafr_solve: phase 4's
+    # launches: the kernel's count on the path LAUNCHES_FROM names (the fig-8
+    # closed loop where that runs it); launches_<path>: every path's own count
+    by_path = {"wafr_solve": launches, **fig8_launches}
     line = {"kernels": [
         {k: r[k] for k in ("name", "route", "source", "replaces")}
-        | {"launches": fig8_launches[r["name"]], "max_abs_err": r["max_abs_err"],
-           "ms": r["ms"], "plain_ms": r["plain_ms"]}
-        | {k: v for k, v in r.items() if k.startswith(("ms_b", "plain_ms_b"))}
-        | {"launches_wafr_solve": launches[r["name"]]}
+        | {"launches": by_path[LAUNCHES_FROM[r["name"]]][r["name"]],
+           "launches_from": LAUNCHES_FROM[r["name"]], "max_abs_err": r["max_abs_err"],
+           "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+           "bound_by": r["bound_by"], "library_ms": r["library_ms"]}
+        | {k: v for k, v in r.items()
+           if k.startswith(("ms_", "plain_ms_b", "host_us", "kernel_us", "bytes", "operations"))}
+        | {f"launches_{path}": counts[r["name"]] for path, counts in by_path.items()}
         for r in kernels]}
     print(f"solve: median {median_ms:.3f} ms per warm {N_ITERS}-iteration solve on {card}",
           flush=True)

@@ -15,260 +15,421 @@
 //   K, du, P', p', A - B K, B du, the dJ terms and the fail flag
 // The terminal step k = N-1 passes the seed through with zero gains.  Outputs
 // are written at their own step index, so they come back in ascending k.
-//
-// Design: one thread block per backward-block lane, mirroring the
-// reference's backPassKern<<<M_BLOCKS_B, (8, 7)>>>.  P and p live in shared
-// memory across the Nb serial steps; each step's AB, H, g and d are loaded
-// into shared memory, and the block's threads share out the matrix entries of
-// each phase, with __syncthreads between phases.  The 7x7 Cholesky runs on
-// one thread; its 15 right-hand sides are solved by one thread each.
-// rho is per lane.  15 KB of static shared memory, sized for n <= 16 and
-// m <= 8 (the wrapper refuses larger plants).
+// dJ and fail are also reduced over the lanes here, by the last block to
+// finish, in lane order (no float atomics: the sum is deterministic).
 //
 // What bounds it on the H100: at the main path there are M = 4 lanes (4
-// blocks of 128 threads on 4 of the 132 SMs) and Nb = 16 dependent steps of
-// ~10k flops each.  It is latency-bound: the time is the chain of ~8
-// barrier-separated phases per step.  Keeping P, p and every temporary in
-// shared memory keeps that chain off device memory except for the step's own
-// inputs and outputs.
+// thread blocks on 4 of the 132 SMs) and Nb = 16 dependent steps of ~10k
+// flops each; the roofline's bytes bound (~0.3 MB moved) is a fraction of a
+// microsecond.  It is latency-bound: the time is the serial chain of phases
+// per step.  The design keeps everything else off that chain:
+//   * Staged inputs.  A lane's AB, H, g and d for its steps are copied into a
+//     ring of shared-memory slots with cp.async, started up front in the order
+//     the sweep consumes them (last step first); a step waits only for its
+//     own slot, so after the first step no device-memory latency is left on
+//     the chain.  At the main path the ring holds all 16 steps (49 KB of the
+//     block's 227 KB); a block too long to fit reuses the slots of finished
+//     steps.
+//   * Compile-time sizes.  (n, m) = (14, 7), the Kuka's, is instantiated
+//     with constant sizes, so the inner loops unroll and the index divisions
+//     fold; every other plant (n <= 16, m <= 8) takes the same body with
+//     run-time sizes.
+//   * Four block barriers per step: [wait for the slot] P[A B] and p~ |
+//     Hq and gq | Cholesky and solve | outputs and the new (P, p).
+//   * Product phases as wide as the block: one thread per entry and 512
+//     threads, so each phase is one round at the Kuka's sizes (a phase is
+//     bound by instruction dispatch and latency, not by arithmetic: strips of
+//     several rows per thread on fewer threads, and rolled summation loops,
+//     both measured slower).  Every output and the new (P, p) are computed
+//     entry by entry from Hq and the solution, so K^T Hux and Hxu K are never
+//     stored (and K^T Hux, which the plain version forms twice, is summed
+//     once); (P + rho I)[A B] is formed once per step, not per use.
+//   * Cholesky and solve inside one warp with no exchange between lanes:
+//     lane c solves right-hand side c of Huu^-1 [Hux | gu] and, for that,
+//     factors Huu itself in registers, fully unrolled (every lane the same
+//     factor: the loads are broadcasts, the redundant arithmetic costs no
+//     time).  The forward substitution of row j runs in the shadow of the
+//     factor's sqrt / reciprocal chain.
+//   * The arithmetic is the plain version's: one accumulator per entry, the
+//     summation index ascending; nvcc's fused multiply-adds differ, and a
+//     division by a diagonal entry of the factor goes through its reciprocal
+//     with one correction step, which rounds as the division does.
+// The counter of finished lanes is the caller's, one per call, zeroed on the
+// launch's stream just before it: sweeps on different streams do not share it.
 
+#include <cuda_pipeline_primitives.h>
 #include <cuda_runtime.h>
 
 #define RIC_NMAX 16
 #define RIC_MMAX 8
-#define RIC_NMMAX (RIC_NMAX + RIC_MMAX)
-#define RIC_THREADS 128
+#define RIC_THREADS 512
 
+// Built with -DRIC_PHASE_CLOCKS (scripts/torch_riccati_phases.py), thread 0 of
+// lane 0 records clock64() at the phase boundaries of every step into
+// `clocks` (Nb, RIC_CLOCK_SLOTS); otherwise the macro is empty.
+#define RIC_CLOCK_SLOTS 8
+#ifdef RIC_PHASE_CLOCKS
+#define RIC_CLOCK(slot) \
+  if (clocks != nullptr && tid == 0 && lane == 0) clocks[i * RIC_CLOCK_SLOTS + (slot)] = clock64()
+#else
+#define RIC_CLOCK(slot)
+#endif
+
+// cp.async one step's inputs into a ring slot laid out [AB | H | g | d]
+__device__ __forceinline__ void ric_stage(float* __restrict__ dst, const float* __restrict__ AB,
+                                          const float* __restrict__ H,
+                                          const float* __restrict__ G,
+                                          const float* __restrict__ Dd, size_t step, int n,
+                                          int nm, int tid) {
+  const int nab = n * nm, nh = nm * nm;
+  const float* s_ab = AB + step * nab;
+  const float* s_h = H + step * nh;
+  const float* s_g = G + step * nm;
+  const float* s_d = Dd + step * n;
+  for (int e = tid; e < nab; e += RIC_THREADS) __pipeline_memcpy_async(dst + e, s_ab + e, 4);
+  for (int e = tid; e < nh; e += RIC_THREADS) __pipeline_memcpy_async(dst + nab + e, s_h + e, 4);
+  for (int e = tid; e < nm; e += RIC_THREADS)
+    __pipeline_memcpy_async(dst + nab + nh + e, s_g + e, 4);
+  for (int e = tid; e < n; e += RIC_THREADS)
+    __pipeline_memcpy_async(dst + nab + nh + nm + e, s_d + e, 4);
+}
+
+// sum over l < len of X[l * x_s] * Y[l * y_s]: one accumulator, l ascending
+__device__ __forceinline__ float ric_dot(const float* X, int x_s, const float* Y, int y_s,
+                                         int len) {
+  float acc = X[0] * Y[0];
+#pragma unroll
+  for (int l = 1; l < len; ++l) acc = acc + X[l * x_s] * Y[l * y_s];
+  return acc;
+}
+
+// x / d given inv = 1 / d correctly rounded: the product with one correction
+// step rounds as the division does (Markstein), in 3 dependent operations.
+__device__ __forceinline__ float ric_div(float x, float d, float inv) {
+  const float q = x * inv;
+  return fmaf(fmaf(-q, d, x), inv, q);
+}
+
+// N_ = M_ = 0: sizes from n_rt, m_rt.
+template <int N_, int M_>
 __global__ void __launch_bounds__(RIC_THREADS)
 riccati_kernel(const float* __restrict__ seedP, const float* __restrict__ seedp,
-               const float* __restrict__ rho_l, const float* __restrict__ AB,
+               const float* __restrict__ rho_l, int rho_stride, const float* __restrict__ AB,
                const float* __restrict__ H, const float* __restrict__ G,
-               const float* __restrict__ Dd, const int* __restrict__ kidx,
+               const float* __restrict__ Dd, const long long* __restrict__ kidx,
                float* __restrict__ P_out, float* __restrict__ p_out, float* __restrict__ K_out,
                float* __restrict__ du_out, float* __restrict__ ApBK_out,
-               float* __restrict__ Bdu_out, float* __restrict__ dj_out, int* __restrict__ fail_out,
-               int Nb, int n, int m, int nf, int n_blocks_f, int state_reg, int use_defect) {
+               float* __restrict__ Bdu_out, float* dj_lane, int* fail_lane, float* dj_total,
+               int* fail_total, unsigned int* lanes_done, int Nb, int n_rt, int m_rt, int nf, int n_blocks_f, int state_reg,
+               int use_defect, int stages, long long* clocks) {
   const int lane = blockIdx.x;
   const int tid = threadIdx.x;
+  const int n = N_ > 0 ? N_ : n_rt;
+  const int m = M_ > 0 ? M_ : m_rt;
   const int nm = n + m;
   const int n1 = n + 1;
 
-  __shared__ float P[RIC_NMAX * RIC_NMAX], p[RIC_NMAX];
-  __shared__ float ab[RIC_NMAX * RIC_NMMAX], Hk[RIC_NMMAX * RIC_NMMAX], gk[RIC_NMMAX], dk[RIC_NMAX];
-  __shared__ float Pab[RIC_NMAX * RIC_NMMAX], Hq[RIC_NMMAX * RIC_NMMAX], gq[RIC_NMMAX], pt[RIC_NMAX];
-  __shared__ float L[RIC_MMAX * RIC_MMAX], sol[RIC_MMAX * (RIC_NMAX + 1)];
-  __shared__ float StZ[(RIC_NMAX + 1) * (RIC_NMAX + 1)], HxuS[RIC_NMAX * (RIC_NMAX + 1)];
-  __shared__ float KtHux[RIC_NMAX * (RIC_NMAX + 1)], BS[RIC_NMAX * (RIC_NMAX + 1)];
-  __shared__ int s_ok;
-  __shared__ float s_dj0, s_dj1;
+  const int tally = RIC_THREADS - 32;    // first thread of the last warp: dJ and fail
 
-  const float rho = rho_l[lane];
+  extern __shared__ float smem[];
+  float* P = smem;                       // (n, n) cost-to-go Hessian, carried
+  float* p = P + n * n;                  // (n)
+  float* pt = p + n;                     // (n) p~
+  float* Pab = pt + n;                   // (n, nm) P [A B]
+  float* Pabu = Pab + n * nm;            // (n, nm) (P + rho I) [A B], state reg
+  float* Hq = Pabu + n * nm;             // (nm, nm)
+  float* gq = Hq + nm * nm;              // (nm)
+  float* sol = gq + nm;                  // (m, n1) Huu^-1 [Hux | gu]
+  int* s_ok = reinterpret_cast<int*>(sol + m * n1);
+  float* ring = sol + m * n1 + 1;
+  const int stage_floats = n * nm + nm * nm + nm + n;
+
+  // stage the first `stages` steps of the sweep, one cp.async group each
+  for (int i = 0; i < stages; ++i) {
+    ric_stage(ring + i * stage_floats, AB, H, G, Dd, (size_t)lane * Nb + (Nb - 1 - i), n, nm, tid);
+    __pipeline_commit();
+  }
+  // group g holds sweep step g; before step i's wait, stages + i - 1 groups
+  // are committed and groups 0..i must be complete
+  const int allowed = stages >= 2 ? stages - 2 : 0;
+
+  const float rho = rho_l[(size_t)lane * rho_stride];
   for (int e = tid; e < n * n; e += RIC_THREADS) P[e] = seedP[(size_t)lane * n * n + e];
   for (int e = tid; e < n; e += RIC_THREADS) p[e] = seedp[(size_t)lane * n + e];
-  float dj0_acc = 0.f, dj1_acc = 0.f;
+  float dj0_acc = 0.f, dj1_acc = 0.f;   // live in thread `tally`
   int fail_acc = 0;
 
-  for (int t = Nb - 1; t >= 0; --t) {
+  long long k_next = kidx[(size_t)lane * Nb + Nb - 1];
+  int slot = 0;                          // i % stages
+  for (int i = 0; i < Nb; ++i) {
+    const int t = Nb - 1 - i;
     const size_t step = (size_t)lane * Nb + t;
-    const int k = kidx[step];
+    const int k = static_cast<int>(k_next);
+    if (t > 0) k_next = kidx[step - 1];   // in flight during this step
     const bool term = (k == nf);
     const bool dfct = use_defect && ((k + 1) % n_blocks_f == 0) && (k < nf);
 
-    __syncthreads();  // the previous step's readers of ab/Hk/Hq are done
-    for (int e = tid; e < n * nm; e += RIC_THREADS) ab[e] = AB[step * n * nm + e];
-    for (int e = tid; e < nm * nm; e += RIC_THREADS) Hk[e] = H[step * nm * nm + e];
-    for (int e = tid; e < nm; e += RIC_THREADS) gk[e] = G[step * nm + e];
-    for (int e = tid; e < n; e += RIC_THREADS) dk[e] = Dd[step * n + e];
+    // barrier 1: this step's slot has landed for every thread, and the
+    // previous step's readers and writers (P, p, its slot) are done
+    RIC_CLOCK(0);
+    __pipeline_wait_prior(allowed);
     __syncthreads();
+    RIC_CLOCK(1);
+    if (i >= 1) {
+      const int i_new = i - 1 + stages;   // refill the slot the previous step used
+      if (i_new < Nb)
+        ric_stage(ring + (slot == 0 ? stages - 1 : slot - 1) * stage_floats, AB, H, G, Dd,
+                  (size_t)lane * Nb + (Nb - 1 - i_new), n, nm, tid);
+      __pipeline_commit();
+    }
+    const float* ab = ring + slot * stage_floats;
+    const float* Hk = ab + n * nm;
+    const float* gk = Hk + nm * nm;
+    const float* dk = gk + nm;
+    slot = (slot + 1 == stages) ? 0 : slot + 1;
+    RIC_CLOCK(2);
 
-    // Pab = P [A B];  p~ = p + dfct * P d
+    // Pab = P [A B], Pabu = Pab + rho [A B];  p~ = p + dfct * P d
     for (int e = tid; e < n * nm + n; e += RIC_THREADS) {
       if (e < n * nm) {
-        const int i = e / nm, j = e - (e / nm) * nm;
-        float acc = P[i * n] * ab[j];
-        for (int l = 1; l < n; ++l) acc = acc + P[i * n + l] * ab[l * nm + j];
+        const int r = e / nm, c = e - r * nm;
+        const float acc = ric_dot(P + r * n, 1, ab + c, nm, n);
         Pab[e] = acc;
+        if (state_reg) Pabu[e] = acc + rho * ab[e];
       } else {
-        const int i = e - n * nm;
-        if (use_defect) {
-          float acc = P[i * n] * dk[0];
-          for (int l = 1; l < n; ++l) acc = acc + P[i * n + l] * dk[l];
-          pt[i] = p[i] + (dfct ? 1.f : 0.f) * acc;
-        } else {
-          pt[i] = p[i];
-        }
+        const int r = e - n * nm;
+        pt[r] = use_defect ? p[r] + (dfct ? 1.f : 0.f) * ric_dot(P + r * n, 1, dk, 1, n) : p[r];
       }
     }
-    __syncthreads();
+    __syncthreads();   // barrier 2
+    RIC_CLOCK(3);
 
-    // Hq = H + G (x-rows: A^T P [A B]; u-rows: B^T (P + rho I) [A B] under state reg)
+    // Hq = H + G (x-rows: A^T P [A B]; u-rows: B^T (P + rho I) [A B] under
+    // state reg, else rho on Huu's diagonal);  gq = g + [A B]^T p~
     for (int e = tid; e < nm * nm + nm; e += RIC_THREADS) {
       if (e < nm * nm) {
-        const int i = e / nm, j = e - (e / nm) * nm;
-        float acc;
-        if (state_reg && i >= n) {
-          acc = ab[i] * (Pab[j] + rho * ab[j]);
-          for (int l = 1; l < n; ++l) acc = acc + ab[l * nm + i] * (Pab[l * nm + j] + rho * ab[l * nm + j]);
-        } else {
-          acc = ab[i] * Pab[j];
-          for (int l = 1; l < n; ++l) acc = acc + ab[l * nm + i] * Pab[l * nm + j];
-        }
-        float h = Hk[e] + acc;
-        if (!state_reg && i >= n && i == j) h = h + rho;
+        const int r = e / nm, c = e - r * nm;
+        const float* W = (state_reg && r >= n) ? Pabu : Pab;
+        float h = Hk[e] + ric_dot(ab + r, nm, W + c, nm, n);
+        if (!state_reg && r >= n && r == c) h = h + rho;
         Hq[e] = h;
       } else {
-        const int i = e - nm * nm;
-        float acc = ab[i] * pt[0];
-        for (int l = 1; l < n; ++l) acc = acc + ab[l * nm + i] * pt[l];
-        gq[i] = gk[i] + acc;
+        const int r = e - nm * nm;
+        gq[r] = gk[r] + ric_dot(ab + r, nm, pt, 1, n);
       }
     }
-    __syncthreads();
+    __syncthreads();   // barrier 3
+    RIC_CLOCK(4);
 
-    // Cholesky of Huu (+ I at the terminal step) with the PD test; failed
-    // pivots are clamped to 1 so the solution stays finite (ops/linalg.py)
-    if (tid == 0) {
+    // sol = Huu^-1 [Hux | gu] by Cholesky (Huu + I at the terminal step) with
+    // the PD test; failed pivots are clamped to 1 so the solution stays
+    // finite (ops/linalg.py).  Lane c of the first warp: its own copy of the
+    // factor in registers and right-hand side c.
+    if (tid < n1) {
+      const int c = tid;
+      float a[RIC_MMAX][RIC_MMAX], inv[RIC_MMAX], z[RIC_MMAX], s[RIC_MMAX];
+#pragma unroll
+      for (int r = 0; r < RIC_MMAX; ++r) {
+        z[r] = (r < m) ? ((c < n) ? Hq[(n + r) * nm + c] : gq[n + r]) : 0.f;
+#pragma unroll
+        for (int cc = 0; cc <= r; ++cc) a[r][cc] = (r < m) ? Hq[(n + r) * nm + n + cc] : 0.f;
+      }
       int ok = 1;
-      for (int j = 0; j < m; ++j) {
-        float acc = Hq[(n + j) * nm + n + j] + (term ? 1.f : 0.f);
-        for (int kk = 0; kk < j; ++kk) acc = acc - L[j * m + kk] * L[j * m + kk];
-        const bool pos = acc > 0.f;
-        ok = ok && pos;
-        L[j * m + j] = sqrtf(pos ? acc : 1.f);
-        const float inv = 1.f / L[j * m + j];
-        for (int i = j + 1; i < m; ++i) {
-          float a2 = Hq[(n + i) * nm + n + j];
-          for (int kk = 0; kk < j; ++kk) a2 = a2 - L[i * m + kk] * L[j * m + kk];
-          L[i * m + j] = a2 * inv;
+#pragma unroll
+      for (int j = 0; j < RIC_MMAX; ++j) {
+        if (j < m) {
+          float acc = a[j][j] + (term ? 1.f : 0.f);
+#pragma unroll
+          for (int kk = 0; kk < j; ++kk) acc = acc - a[j][kk] * a[j][kk];
+          const bool pos = acc > 0.f;
+          ok = ok && pos;
+          const float ljj = sqrtf(pos ? acc : 1.f);
+          a[j][j] = ljj;
+          inv[j] = 1.f / ljj;
+#pragma unroll
+          for (int r = j + 1; r < RIC_MMAX; ++r) {
+            if (r < m) {
+              float a2 = a[r][j];
+#pragma unroll
+              for (int kk = 0; kk < j; ++kk) a2 = a2 - a[r][kk] * a[j][kk];
+              a[r][j] = a2 * inv[j];
+            }
+          }
+          // forward substitution, row j (z[j] holds the right-hand side)
+          float b = z[j];
+#pragma unroll
+          for (int kk = 0; kk < j; ++kk) b = b - a[j][kk] * z[kk];
+          z[j] = ric_div(b, ljj, inv[j]);
         }
       }
-      s_ok = ok;
-    }
-    __syncthreads();
-
-    // sol = Huu^-1 [Hux | gu], one right-hand side per thread
-    for (int c = tid; c < n1; c += RIC_THREADS) {
-      float z[RIC_MMAX];
-      for (int i = 0; i < m; ++i) {
-        float acc = (c < n) ? Hq[(n + i) * nm + c] : gq[n + i];
-        for (int kk = 0; kk < i; ++kk) acc = acc - L[i * m + kk] * z[kk];
-        z[i] = acc / L[i * m + i];
-      }
-      for (int i = m - 1; i >= 0; --i) {
-        float acc = z[i];
-        for (int kk = i + 1; kk < m; ++kk) acc = acc - L[kk * m + i] * sol[kk * n1 + c];
-        sol[i * n1 + c] = acc / L[i * m + i];
-      }
-    }
-    __syncthreads();
-
-    // products of the solution: StZ = sol^T [Hux | gu], HxuS = Hxu sol,
-    // KtHux = K^T Hux and Ktgu = K^T gu (state reg only), BS = B sol
-    const int nStZ = state_reg ? n1 * n1 : 0;
-    const int nHxuS = n * n1;
-    const int nKt = state_reg ? n * n1 : 0;
-    const int nBS = n * n1;
-    for (int e = tid; e < nStZ + nHxuS + nKt + nBS + 1; e += RIC_THREADS) {
-      if (e < nStZ) {
-        const int i = e / n1, j = e - (e / n1) * n1;
-        float acc = sol[i] * ((j < n) ? Hq[n * nm + j] : gq[n]);
-        for (int r = 1; r < m; ++r)
-          acc = acc + sol[r * n1 + i] * ((j < n) ? Hq[(n + r) * nm + j] : gq[n + r]);
-        StZ[e] = acc;
-      } else if (e < nStZ + nHxuS) {
-        const int f = e - nStZ;
-        const int i = f / n1, j = f - (f / n1) * n1;
-        float acc = Hq[i * nm + n] * sol[j];
-        for (int r = 1; r < m; ++r) acc = acc + Hq[i * nm + n + r] * sol[r * n1 + j];
-        HxuS[f] = acc;
-      } else if (e < nStZ + nHxuS + nKt) {
-        // K^T [Hux | gu]: the same sums as StZ's first n rows, computed on
-        // their own as the reference does (sol[:, :n].T @ Hux, ... @ gu)
-        const int f = e - nStZ - nHxuS;
-        const int i = f / n1, j = f - (f / n1) * n1;
-        float acc = sol[i] * ((j < n) ? Hq[n * nm + j] : gq[n]);
-        for (int r = 1; r < m; ++r)
-          acc = acc + sol[r * n1 + i] * ((j < n) ? Hq[(n + r) * nm + j] : gq[n + r]);
-        KtHux[f] = acc;
-      } else if (e < nStZ + nHxuS + nKt + nBS) {
-        const int f = e - nStZ - nHxuS - nKt;
-        const int i = f / n1, j = f - (f / n1) * n1;
-        float acc = ab[i * nm + n] * sol[j];
-        for (int r = 1; r < m; ++r) acc = acc + ab[i * nm + n + r] * sol[r * n1 + j];
-        BS[f] = acc;
-      } else {
-        // dJ terms: du . gu and du . (Huu du), Huu without the terminal + I
-        float dj0 = 0.f, dj1 = 0.f;
-        for (int i = 0; i < m; ++i) {
-          float hd = Hq[(n + i) * nm + n] * sol[n];
-          for (int j = 1; j < m; ++j) hd = hd + Hq[(n + i) * nm + n + j] * sol[j * n1 + n];
-          const float du_i = sol[i * n1 + n];
-          dj0 = dj0 + du_i * gq[n + i];
-          dj1 = dj1 + du_i * hd;
+#pragma unroll
+      for (int r = RIC_MMAX - 1; r >= 0; --r) {
+        if (r < m) {
+          float acc = z[r];
+#pragma unroll
+          for (int kk = r + 1; kk < RIC_MMAX; ++kk) {
+            if (kk < m) acc = acc - a[kk][r] * s[kk];
+          }
+          s[r] = ric_div(acc, a[r][r], inv[r]);
         }
-        s_dj0 = dj0;
-        s_dj1 = dj1;
       }
+#pragma unroll
+      for (int r = 0; r < RIC_MMAX; ++r) {
+        if (r < m) {
+          sol[r * n1 + c] = s[r];
+          // the gains, at step index t (ascending k)
+          if (c < n) K_out[(step * m + r) * n + c] = term ? 0.f : s[r];
+          else du_out[step * m + r] = term ? 0.f : s[r];
+        }
+      }
+      if (c == 0) *s_ok = ok;
     }
-    __syncthreads();
+    RIC_CLOCK(5);
+    __syncthreads();   // barrier 4
+    RIC_CLOCK(6);
 
-    // outputs at step index t (ascending k) and the carry for step k-1
-    for (int e = tid; e < n * n + n + m * n + m; e += RIC_THREADS) {
-      if (e < n * n) {
-        const int i = e / n, j = e - (e / n) * n;
-        const float hxx = Hq[i * nm + j];
-        float pn = state_reg ? ((hxx + StZ[i * n1 + j]) - HxuS[i * n1 + j]) - KtHux[i * n1 + j]
-                             : hxx - HxuS[i * n1 + j];
-        const float v = term ? P[e] : pn;
-        P[e] = v;
-        P_out[step * n * n + e] = v;
-        ApBK_out[step * n * n + e] = term ? 0.f : ab[i * nm + j] - BS[i * n1 + j];
-      } else if (e < n * n + n) {
-        const int i = e - n * n;
-        const float gx = gq[i];
-        float pn = state_reg ? ((gx + StZ[i * n1 + n]) - HxuS[i * n1 + n]) - KtHux[i * n1 + n]
-                             : gx - HxuS[i * n1 + n];
-        const float v = term ? p[i] : pn;
-        p[i] = v;
-        p_out[step * n + i] = v;
-        Bdu_out[step * n + i] = term ? 0.f : BS[i * n1 + n];
-      } else if (e < n * n + n + m * n) {
-        const int f = e - n * n - n;
-        const int i = f / n, j = f - (f / n) * n;
-        K_out[step * m * n + f] = term ? 0.f : sol[i * n1 + j];
+    // outputs and the carry for step k-1, one entry per thread (column n is
+    // the gradient's):
+    //   s1 = (sol^T [Hux | gu])[r][c]   (= K^T Hux, K^T gu: summed once)
+    //   s2 = (Hxu sol)[r][c]
+    //   P' = ((Hxx + s1) - s2) - s1,  p' likewise from gx  (state reg)
+    //   P' = Hxx - s2                                      (otherwise)
+    // then B sol for A - B K and B du
+    for (int e = tid; e < 2 * n * n1; e += RIC_THREADS) {
+      if (e < n * n1) {
+        const int r = e / n1, c = e - r * n1;
+        const float s2 = ric_dot(Hq + r * nm + n, 1, sol + c, n1, m);
+        const float h0 = (c < n) ? Hq[r * nm + c] : gq[r];
+        float pn = h0 - s2;
+        if (state_reg) {   // column c of [Hux | gu]
+          const float s1 = ric_dot(sol + r, n1, c < n ? Hq + n * nm + c : gq + n, c < n ? nm : 1, m);
+          pn = ((h0 + s1) - s2) - s1;
+        }
+        if (c < n) {
+          const float v = term ? P[r * n + c] : pn;
+          P[r * n + c] = v;
+          P_out[step * n * n + r * n + c] = v;
+        } else {
+          const float v = term ? p[r] : pn;
+          p[r] = v;
+          p_out[step * n + r] = v;
+        }
       } else {
-        const int i = e - n * n - n - m * n;
-        du_out[step * m + i] = term ? 0.f : sol[i * n1 + n];
+        const int f = e - n * n1;
+        const int r = f / n1, c = f - r * n1;
+        const float bs = ric_dot(ab + r * nm + n, 1, sol + c, n1, m);
+        if (c < n) ApBK_out[step * n * n + r * n + c] = term ? 0.f : ab[r * nm + c] - bs;
+        else Bdu_out[step * n + r] = term ? 0.f : bs;
       }
     }
-    if (tid == 0) {
-      if (!term) {
-        dj0_acc = dj0_acc + s_dj0;
-        dj1_acc = dj1_acc + s_dj1;
+    // dJ terms du . gu and du . (Huu du), Huu without the terminal + I: one
+    // control row per lane of the last warp, gathered in row order
+    if (tid >= tally) {
+      const int r = tid - tally;
+      float g_t = 0.f, h_t = 0.f;
+      if (r < m) {
+        const float du_r = sol[r * n1 + n];
+        g_t = du_r * gq[n + r];
+        h_t = du_r * ric_dot(Hq + (n + r) * nm + n, 1, sol + n, n1, m);
       }
-      fail_acc = fail_acc || (!s_ok && !term);
+      float dj0 = 0.f, dj1 = 0.f;
+#pragma unroll
+      for (int q = 0; q < RIC_MMAX; ++q) {
+        const float g_q = __shfl_sync(0xffffffffu, g_t, q);
+        const float h_q = __shfl_sync(0xffffffffu, h_t, q);
+        if (q < m) {
+          dj0 = dj0 + g_q;
+          dj1 = dj1 + h_q;
+        }
+      }
+      if (tid == tally) {
+        if (!term) {
+          dj0_acc = dj0_acc + dj0;
+          dj1_acc = dj1_acc + dj1;
+        }
+        fail_acc = fail_acc || (!*s_ok && !term);
+      }
     }
+    RIC_CLOCK(7);
   }
-  if (tid == 0) {
-    dj_out[lane * 2 + 0] = dj0_acc;
-    dj_out[lane * 2 + 1] = dj1_acc;
-    fail_out[lane] = fail_acc;
+
+  if (tid == tally) {
+    dj_lane[lane * 2 + 0] = dj0_acc;
+    dj_lane[lane * 2 + 1] = dj1_acc;
+    fail_lane[lane] = fail_acc;
+    __threadfence();
+    // the last block to arrive sums the lanes in lane order
+    const unsigned int last = gridDim.x - 1;
+    if (atomicAdd(lanes_done, 1u) == last) {
+      __threadfence();
+      const volatile float* vd = dj_lane;
+      const volatile int* vf = fail_lane;
+      float s0 = 0.f, s1 = 0.f;
+      int f = 0;
+      for (unsigned int l = 0; l <= last; ++l) {
+        s0 = s0 + vd[2 * l];
+        s1 = s1 + vd[2 * l + 1];
+        f = f | vf[l];
+      }
+      dj_total[0] = s0;
+      dj_total[1] = s1;
+      fail_total[0] = f;
+    }
   }
 }
 
-// Lane-major inputs: seedP (Mb, n, n), seedp (Mb, n), rho (Mb), AB (Mb, Nb, n, n+m),
-// H (Mb, Nb, n+m, n+m), g (Mb, Nb, n+m), d (Mb, Nb, n), k (Mb, Nb) int32.
-// Outputs in the same (Mb, Nb, ...) layout, plus dJ (Mb, 2) and fail (Mb) int32.
+// Lane-major inputs: seedP (Mb, n, n), seedp (Mb, n), rho (one float, rho_stride
+// 0, or one per lane, rho_stride 1), AB (Mb, Nb, n, n+m), H (Mb, Nb, n+m, n+m),
+// g (Mb, Nb, n+m), d (Mb, Nb, n), k (Mb, Nb) int64.  Outputs in the same
+// (Mb, Nb, ...) layout, per-lane dJ (Mb, 2) and fail (Mb) int32, and their
+// reductions over the lanes dj_total (2) and fail_total (1) int32; lanes_done
+// (1) is this call's scratch counter, zeroed here.
+// clocks: null, or (Nb, RIC_CLOCK_SLOTS) int64 for a RIC_PHASE_CLOCKS build.
 extern "C" int pddp_riccati(const float* seedP, const float* seedp, const float* rho,
-                            const float* AB, const float* H, const float* g, const float* d,
-                            const int* k, float* P_out, float* p_out, float* K_out,
-                            float* du_out, float* ApBK_out, float* Bdu_out, float* dj_out,
-                            int* fail_out, int Mb, int Nb, int n, int m, int nf, int n_blocks_f,
-                            int state_reg, int use_defect, void* stream) {
+                            int rho_stride, const float* AB, const float* H, const float* g,
+                            const float* d, const long long* k, float* P_out, float* p_out,
+                            float* K_out, float* du_out, float* ApBK_out, float* Bdu_out,
+                            float* dj_lane, int* fail_lane, float* dj_total, int* fail_total,
+                            unsigned int* lanes_done, int Mb, int Nb, int n, int m, int nf,
+                            int n_blocks_f, int state_reg, int use_defect, long long* clocks,
+                            void* stream) {
   if (n > RIC_NMAX || m > RIC_MMAX || n <= 0 || m <= 0) return static_cast<int>(cudaErrorInvalidValue);
   if (Mb <= 0 || Nb <= 0) return 0;
-  riccati_kernel<<<Mb, RIC_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      seedP, seedp, rho, AB, H, g, d, k, P_out, p_out, K_out, du_out, ApBK_out, Bdu_out, dj_out,
-      fail_out, Nb, n, m, nf, n_blocks_f, state_reg, use_defect);
+
+  static int optin_bytes[64];            // per device, 0 until asked
+  static unsigned char configured[64];   // bit 0: generic body, bit 1: (14, 7)
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (dev < 0 || dev >= 64) return static_cast<int>(cudaErrorInvalidDevice);
+  if (optin_bytes[dev] == 0) {
+    err = cudaDeviceGetAttribute(&optin_bytes[dev], cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+
+  const int nm = n + m, n1 = n + 1;
+  const int fixed_floats = n * n + 2 * n + 2 * n * nm + nm * nm + nm + m * n1 + 1;
+  const int stage_floats = n * nm + nm * nm + nm + n;
+  const int cap = (optin_bytes[dev] / 4 - fixed_floats) / stage_floats;
+  if (cap < 2) return static_cast<int>(cudaErrorInvalidValue);
+  const int stages = Nb < cap ? Nb : cap;
+  const size_t bytes = sizeof(float) * (static_cast<size_t>(fixed_floats) +
+                                        static_cast<size_t>(stages) * stage_floats);
+
+  const bool kuka = (n == 14 && m == 7);
+  decltype(&riccati_kernel<0, 0>) kern = kuka ? riccati_kernel<14, 7> : riccati_kernel<0, 0>;
+  const unsigned char bit = kuka ? 2 : 1;
+  if (bytes > 48 * 1024 && !(configured[dev] & bit)) {
+    err = cudaFuncSetAttribute(reinterpret_cast<const void*>(kern),
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, optin_bytes[dev]);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    configured[dev] |= bit;
+  }
+  err = cudaMemsetAsync(lanes_done, 0, sizeof(unsigned int), static_cast<cudaStream_t>(stream));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kern<<<Mb, RIC_THREADS, bytes, static_cast<cudaStream_t>(stream)>>>(
+      seedP, seedp, rho, rho_stride, AB, H, g, d, k, P_out, p_out, K_out, du_out, ApBK_out,
+      Bdu_out, dj_lane, fail_lane, dj_total, fail_total, lanes_done, Nb, n, m, nf, n_blocks_f, state_reg,
+      use_defect, stages, clocks);
   return static_cast<int>(cudaGetLastError());
 }

@@ -24,37 +24,9 @@
 
 #include <cuda_runtime.h>
 
-#include "kuka_soa.cuh"
+#include "kuka_step.cuh"
 
-#define RO_NS (2 * KUKA_NJ)
-
-// one integrator step in float (ops/integrators.py make_step, formula for formula)
-__device__ __forceinline__ void kuka_step(const float* __restrict__ cc, int integrator, float h,
-                                          float h_half, float h_sixth, const float x[RO_NS],
-                                          const float u[KUKA_NJ], float xn[RO_NS]) {
-  float k1[RO_NS];
-  kuka_xdot<float>(cc, x, u, k1);
-  if (integrator == 1) {
-#pragma unroll
-    for (int i = 0; i < RO_NS; ++i) xn[i] = x[i] + h * k1[i];
-    return;
-  }
-  float xm[RO_NS], k2[RO_NS];
-#pragma unroll
-  for (int i = 0; i < RO_NS; ++i) xm[i] = x[i] + h_half * k1[i];
-  kuka_xdot<float>(cc, xm, u, k2);
-  if (integrator == 2) {
-#pragma unroll
-    for (int i = 0; i < RO_NS; ++i) xn[i] = x[i] + h * k2[i];
-    return;
-  }
-  float k3[RO_NS];
-#pragma unroll
-  for (int i = 0; i < RO_NS; ++i) xm[i] = x[i] + h * (2.0f * k2[i] - k1[i]);
-  kuka_xdot<float>(cc, xm, u, k3);
-#pragma unroll
-  for (int i = 0; i < RO_NS; ++i) xn[i] = x[i] + h_sixth * ((k1[i] + 4.0f * k2[i]) + k3[i]);
-}
+#define RO_NS KUKA_NS
 
 __global__ void rollout_kernel(const float* __restrict__ cc, const float* __restrict__ x_swept,
                                const float* __restrict__ u, const float* __restrict__ K,

@@ -8,7 +8,7 @@ batch dimensions, so a whole time axis or (alpha, block) grid is one call.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Optional
+from typing import Callable, NamedTuple, Optional
 
 import torch
 
@@ -36,6 +36,13 @@ class Plant:
         m_blocks_f, num_alpha) -> fused(x_swept, u, K, du, xp, alphas) ->
         (x_next_all, u_new_all): the whole multiple-shooting forward
         simulation in one op (`ops/cuda_rollout.py`).
+      sim_chain: optional factory (integrator, dt) -> SimChain
+        (`ops/cuda_sim_chain.py`): T dependent integrator steps as one op,
+        under given controls (`open_loop`) or under the trajectory runner's
+        control law (`runner`) — what the reference compiles as a `lax.scan`
+        of its step.  The MPC warm start, the cold open-loop rollout and the
+        closed loop's plant substeps call it; without it they loop over
+        `make_step`.
     """
 
     name: str
@@ -52,6 +59,7 @@ class Plant:
     num_alpha_default: int = 32
     batched_step_jac: Optional[Callable[[int, float], Callable]] = None
     fused_rollout: Optional[Callable[[int, float, int, int, int], Callable]] = None
+    sim_chain: Optional[Callable[[int, float], NamedTuple]] = None
 
     def __hash__(self):
         return hash((self.name, self.n_pos, self.n_ctrl))

@@ -20,8 +20,10 @@ class KukaParams:
     #   "cuda" the counterpart of the reference's core="pallas": the plant
     #          dynamics run through the forward-dynamics op (ops/cuda_rbd.py
     #          kuka_qdd), the solver's derivative stage through the
-    #          RBD-Jacobian op (same module) and the multiple-shooting forward
-    #          simulation through the rollout op (ops/cuda_rollout.py).  Each
+    #          RBD-Jacobian op (same module), the multiple-shooting forward
+    #          simulation through the rollout op (ops/cuda_rollout.py) and
+    #          chains of plant steps (MPC warm start, cold rollout, plant
+    #          substeps) through the chain op (ops/cuda_sim_chain.py).  Each
     #          op launches its CUDA kernel on CUDA tensors and uses its plain
     #          PyTorch version (the soa core) on CPU tensors.
     #   "soa"  the same plant without those hooks.
@@ -47,9 +49,11 @@ def kuka(params: KukaParams | None = None) -> Plant:
     dynamics = rbd.forward_dynamics
     batched_step_jac = None
     fused_rollout = None
+    sim_chain = None
     if params.core == "cuda":
         from parallel_ddp_tpu_torch.ops.cuda_rbd import kuka_qdd, make_kuka_ab
         from parallel_ddp_tpu_torch.ops.cuda_rollout import make_kuka_fused_rollout
+        from parallel_ddp_tpu_torch.ops.cuda_sim_chain import make_kuka_sim_chain
 
         dynamics = functools.partial(kuka_qdd, ee_type=params.ee_type,
                                      gravity=params.gravity)
@@ -63,6 +67,9 @@ def kuka(params: KukaParams | None = None) -> Plant:
                 _p.ee_type, _p.gravity, integrator, dt,
                 num_time_steps, m_blocks_f, num_alpha,
             )
+
+        def sim_chain(integrator, dt, _p=params):
+            return make_kuka_sim_chain(_p.ee_type, _p.gravity, integrator, dt)
 
     return Plant(
         name=f"kuka_ee{params.ee_type}_g{params.gravity:g}_{params.core}",
@@ -78,4 +85,5 @@ def kuka(params: KukaParams | None = None) -> Plant:
         num_alpha_default=16,
         batched_step_jac=batched_step_jac,
         fused_rollout=fused_rollout,
+        sim_chain=sim_chain,
     )

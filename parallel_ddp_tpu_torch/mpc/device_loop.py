@@ -5,11 +5,13 @@ The reference's lockstep MPC test runs solver and simulated plant in-process,
 alternating solve and integrate (testMPC_lockstep, WAFR_MPC_examples.cu:
 105-238).  The JAX package fuses the whole loop into one `lax.scan`; here it
 is a Python loop over control steps whose every tensor stays on the device:
-warm-start shift, budgeted re-solve, the kHz trajectory-runner control law,
-plant integration (one forward-dynamics kernel launch per substep on CUDA)
-and the tracking-error metric.  Per-step results are written into
-preallocated device tensors and read once, by the caller, at the end; the
-tracking error is computed from them after the loop, in one batched FK call.
+warm-start shift, budgeted re-solve, then the control period's plant substeps
+under the kHz trajectory-runner control law as ONE call of the plant's
+simulation chain (`ops/cuda_sim_chain.py`: on CUDA one kernel launch, with the
+plant clock kept on the device), and the tracking-error metric.  Per-step
+results are written into preallocated device tensors and read once, by the
+caller, at the end; the tracking error is computed from them after the loop,
+in one batched FK call.
 The only host reads are the solver's own exit-flag reads (`host_syncs`).
 """
 
@@ -21,7 +23,9 @@ import torch
 
 from parallel_ddp_tpu_torch.config import CostWeights
 from parallel_ddp_tpu_torch.mpc.driver import MPCController, MPCState
-from parallel_ddp_tpu_torch.ops.integrators import make_step
+from parallel_ddp_tpu_torch.ops.cuda_sim_chain import get_hardware_controls, make_sim_chain
+
+__all__ = ["DeviceLoopResult", "get_hardware_controls", "make_device_mpc_loop"]
 
 
 class DeviceLoopResult(NamedTuple):
@@ -32,27 +36,6 @@ class DeviceLoopResult(NamedTuple):
     ok: torch.Tensor         # (T,) accepted or converged/feasible
     state: MPCState          # final solver state
     host_syncs: int = 0      # exit-flag reads on the host, summed over the solves
-
-
-def get_hardware_controls(traj_x, traj_u, traj_K, t0, dt, t, x_meas,
-                          use_feedback: bool = True):
-    """Tensor twin of mpc/controls.get_hardware_controls (the reference's
-    `get_hardware_controls_jax`): index the trajectory by the plant clock t
-    (a 0-d tensor), FOH on x, ZOH on u/K, u = u_k - K_k (x - x_ref)
-    (getHardwareControls, MPCHelpers.cuh:817-858).  Clamps at the trajectory
-    end instead of failing (the loop replans every step).  The index stays a
-    device tensor: no host read."""
-    n = traj_x.shape[0]
-    rel = (t - t0) / dt
-    ind = torch.clamp(torch.floor(rel).to(torch.int64), 0, n - 2)
-    frac = torch.clamp(rel - ind.to(rel.dtype), 0.0, 1.0)
-    rows = torch.stack([ind, ind + 1]).reshape(2)
-    x0, x1 = traj_x.index_select(0, rows)
-    x_ref = (1.0 - frac) * x0 + frac * x1
-    u = traj_u.index_select(0, rows[:1])[0]
-    if use_feedback:
-        u = u - traj_K.index_select(0, rows[:1])[0] @ (x_meas - x_ref)
-    return u
 
 
 def make_device_mpc_loop(
@@ -73,7 +56,7 @@ def make_device_mpc_loop(
     plant = ctrl.plant
     sim_dt = 1.0 / sim_rate_hz
     substeps = max(1, int(round(control_period_s * sim_rate_hz)))
-    sim_step = make_step(plant, sim_integrator, sim_dt)
+    chain = make_sim_chain(plant, sim_integrator, sim_dt)
     has_ee = plant.ee_pos is not None
     n_pos, dt = plant.n_pos, ctrl.cfg.dt
 
@@ -93,10 +76,8 @@ def make_device_mpc_loop(
             goal = {k: v[i] for k, v in goals.items()}
             st, info = ctrl._mpc_step(st, x, t, goal, w, ctrl.mpc.max_iters_per_solve)
             syncs += ctrl.host_syncs
-            for _ in range(substeps):
-                u = get_hardware_controls(st.x, st.u, st.K, st.t0, dt, t, x, use_feedback)
-                x = sim_step(x, u)
-                t = t + sim_dt
+            x_sub, t = chain.runner(st.x, st.u, st.K, st.t0, dt, t, x, substeps, use_feedback)
+            x = x_sub[-1]
             xs[i] = x
             js[i] = info.J
             accs[i] = info.accepted

@@ -20,30 +20,31 @@ import numpy as np
 import torch
 
 from parallel_ddp_tpu_torch.config import CostWeights
+from parallel_ddp_tpu_torch.device import default_device
 from parallel_ddp_tpu_torch.models.base import Plant
 from parallel_ddp_tpu_torch.mpc.controls import TrajHandoff, get_hardware_controls
 from parallel_ddp_tpu_torch.mpc.driver import MPCController, MPCState
-from parallel_ddp_tpu_torch.ops.integrators import make_step
+from parallel_ddp_tpu_torch.ops.cuda_sim_chain import make_sim_chain
 
 
 class PlantSimulator:
     """Integrate the true plant at a control rate with substeps, on `device`
-    (numpy in, numpy out)."""
+    (default: the card; numpy in, numpy out)."""
 
     def __init__(self, plant: Plant, rate_hz: float = 1000.0, substeps: int = 1,
                  integrator: int = 3, device=None):
         self.plant = plant
         self.dt = 1.0 / rate_hz
         self.substeps = substeps
-        self.device = torch.device(device) if device is not None else torch.device("cpu")
-        self._step = make_step(plant, integrator, self.dt / substeps)
+        self.device = torch.device(device) if device is not None else default_device()
+        self._chain = make_sim_chain(plant, integrator, self.dt / substeps)
 
     def step(self, x: np.ndarray, u: np.ndarray) -> np.ndarray:
         f32 = dict(dtype=torch.float32, device=self.device)
         xt, ut = torch.tensor(np.asarray(x), **f32), torch.tensor(np.asarray(u), **f32)
-        for _ in range(self.substeps):
-            xt = self._step(xt, ut)
-        return xt.cpu().numpy()
+        # the substeps hold the control: one chain call
+        xs = self._chain.open_loop(xt, ut.expand(self.substeps, -1))
+        return xs[-1].cpu().numpy()
 
 
 class LockstepResult(NamedTuple):

@@ -25,8 +25,8 @@ import time
 import torch
 
 CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
-SOURCES = ("rbd_jac.cu", "rollout.cu", "riccati.cu", "qdd.cu")
-HEADERS = ("kuka_soa.cuh",)
+SOURCES = ("rbd_jac.cu", "rollout.cu", "riccati.cu", "qdd.cu", "sim_chain.cu")
+HEADERS = ("kuka_soa.cuh", "kuka_step.cuh")
 BUILD_ROOT = pathlib.Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -43,12 +43,18 @@ _SIGNATURES = {
     # consts, x_swept, u, K, du, xp, alphas, skip, xout, uout,
     # n_alpha, n_blocks, nf, integrator, h, h_half, h_sixth, stream
     "pddp_rollout": (_P,) * 10 + (_I, _I, _I, _I, _F, _F, _F, _P),
-    # seedP, seedp, rho, AB, H, g, d, k, P, p, K, du, ApBK, Bdu, dj, fail,
-    # Mb, Nb, n, m, nf, n_blocks_f, state_reg, use_defect, stream
-    "pddp_riccati": (_P,) * 16 + (_I,) * 8 + (_P,),
+    # seedP, seedp, rho, rho_stride, AB, H, g, d, k, P, p, K, du, ApBK, Bdu,
+    # dj_lane, fail_lane, dj_total, fail_total, lanes_done, Mb, Nb, n, m, nf,
+    # n_blocks_f, state_reg, use_defect, clocks, stream
+    "pddp_riccati": (_P,) * 3 + (_I,) + (_P,) * 16 + (_I,) * 8 + (_P, _P),
     # consts, x, u, qdd, batch, stream
     "pddp_qdd": (_P, _P, _P, _P, _I, _P),
+    # consts, x0, u, traj_x, traj_u, traj_K, t0, t, xs, t_out, batch, T, n_traj,
+    # traj_dt, sim_dt, use_feedback, integrator, h, h_half, h_sixth, stream
+    "pddp_sim_chain": (_P,) * 10 + (_I, _I, _I, _F, _F, _I, _I, _F, _F, _F, _P),
 }
+# the raw handle of a device's current stream without building a Stream object
+_RAW_STREAM = getattr(torch._C, "_cuda_getCurrentRawStream", None)
 
 
 def _digest() -> str:
@@ -142,6 +148,26 @@ def check_input(name, t, shape, dtype=torch.float32) -> None:
         raise ValueError(f"{name} must have shape {tuple(shape)}, got {tuple(t.shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+
+
+def launch(name: str, device: torch.device, *args) -> None:
+    """Call the library's launch function `name` with `args` and the current
+    stream of `device`; raise if the launch was refused.  The device context
+    is entered only when `device` is not already the current one."""
+    fn = getattr(library(), name)
+    index = device.index
+    if index is None or index == torch.cuda.current_device():
+        status = fn(*args, _current_stream(index))
+    else:
+        with torch.cuda.device(device):
+            status = fn(*args, _current_stream(index))
+    check(status, name)
+
+
+def _current_stream(index) -> int:
+    if _RAW_STREAM is not None and index is not None:
+        return _RAW_STREAM(index)
+    return torch.cuda.current_stream(index).cuda_stream
 
 
 def check(status: int, kernel: str) -> None:

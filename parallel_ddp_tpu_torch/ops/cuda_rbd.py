@@ -8,8 +8,10 @@ Twin of `parallel_ddp_tpu/ops/pallas_rbd.py`.  `kuka_qdd(x, u)` returns qdd
   * on CUDA tensors, the hand-written kernel `csrc/qdd.cu` (one thread per
     sample), or it raises.  The kernel has no backward (`kuka_jac_qdd` is
     its derivative): under autograd or a `torch.func` transform it raises.
-`Plant.dynamics` of the "cuda" core is `kuka_qdd`, so every integrator step
-of the plant (cold rollout, MPC warm start, plant simulator) launches it.
+`Plant.dynamics` of the "cuda" core is `kuka_qdd`: batched single evaluations
+of the dynamics launch it.  Chains of dependent integrator steps (cold
+rollout, MPC warm start, plant substeps) go through `ops/cuda_sim_chain.py`,
+whose kernel runs the time loop inside one launch.
 
 `kuka_jac_qdd(x, u)` returns
 (d qdd / d [x; u] (B, 7, 21), qdd (B, 7)):
@@ -39,11 +41,10 @@ _NIN = 3 * N_JOINTS
 
 
 @functools.lru_cache(maxsize=16)
-def consts_tensor(ee_type: int, gravity: float, device: str) -> torch.Tensor:
+def consts_tensor(ee_type: int, gravity: float, device: torch.device) -> torch.Tensor:
     """The chain constants as the float32 device array the kernels read
     (`csrc/kuka_soa.cuh`), cached per device."""
-    return torch.as_tensor(soa._consts(ee_type, float(gravity)).flat(),
-                           device=torch.device(device))
+    return torch.as_tensor(soa._consts(ee_type, float(gravity)).flat(), device=device)
 
 
 def kuka_qdd_plain(x, u, ee_type: int = 1, gravity: float = 9.81):
@@ -71,13 +72,9 @@ def kuka_qdd_cuda(x, u, ee_type: int = 1, gravity: float = 9.81):
     if uf.device != xf.device:
         raise ValueError(f"x on {x.device} but u on {u.device}")
     qdd = torch.empty((B, N_JOINTS), device=x.device, dtype=torch.float32)
-    cc = consts_tensor(ee_type, float(gravity), str(x.device))
-    lib = build.library()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        status = lib.pddp_qdd(cc.data_ptr(), xf.data_ptr(), uf.data_ptr(),
-                              qdd.data_ptr(), B, stream)
-    build.check(status, "qdd")
+    cc = consts_tensor(ee_type, float(gravity), x.device)
+    build.launch("pddp_qdd", x.device, cc.data_ptr(), xf.data_ptr(), uf.data_ptr(),
+                 qdd.data_ptr(), B)
     kuka_qdd_cuda.launches += 1
     return qdd.reshape(lead + (N_JOINTS,))
 
@@ -117,13 +114,9 @@ def kuka_jac_qdd_cuda(x, u, ee_type: int = 1, gravity: float = 9.81):
         raise ValueError(f"x on {x.device} but u on {u.device}")
     jac = torch.empty((B, N_JOINTS, _NIN), device=x.device, dtype=torch.float32)
     qdd = torch.empty((B, N_JOINTS), device=x.device, dtype=torch.float32)
-    cc = consts_tensor(ee_type, float(gravity), str(x.device))
-    lib = build.library()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        status = lib.pddp_rbd_jac(cc.data_ptr(), x.data_ptr(), u.data_ptr(),
-                                  jac.data_ptr(), qdd.data_ptr(), B, stream)
-    build.check(status, "rbd_jac")
+    cc = consts_tensor(ee_type, float(gravity), x.device)
+    build.launch("pddp_rbd_jac", x.device, cc.data_ptr(), x.data_ptr(), u.data_ptr(),
+                 jac.data_ptr(), qdd.data_ptr(), B)
     kuka_jac_qdd_cuda.launches += 1
     return jac, qdd
 

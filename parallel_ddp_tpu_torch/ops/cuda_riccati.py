@@ -13,10 +13,11 @@ bpHelpers.cuh:336-420):
   * on CPU tensors, the plain version: `parallel/backward.py::run_block` over
     all block lanes at once (the per-step recursion `make_riccati_step`);
   * on CUDA tensors, the kernel `csrc/riccati.cu` (one thread block per
-    lane, the cost-to-go in shared memory across the block's steps), or it
-    raises.
-rho is per lane inside the kernel; dJ is summed per lane in the kernel and
-across lanes here, and fail is the OR of the lanes.
+    lane, the block's inputs staged into shared memory ahead of the sweep,
+    the cost-to-go in shared memory across the block's steps), or it raises.
+Inside the kernel rho is one value or one per lane; dJ is summed per lane and
+then over the lanes in lane order, and fail is the OR of the lanes, all in
+the kernel.
 """
 
 from __future__ import annotations
@@ -26,52 +27,55 @@ import torch
 from parallel_ddp_tpu_torch.ops import build
 from parallel_ddp_tpu_torch.parallel.backward import make_riccati_step, run_block
 
-# static shared-memory sizing of csrc/riccati.cu
+# the sizes csrc/riccati.cu takes (RIC_NMAX, RIC_MMAX)
 MAX_N = 16
 MAX_M = 8
 
 
-def riccati_cuda(rho_l, seeds_P, seeds_p, AB_blk, H_blk, g_blk, d_blk, k_blk, *,
+def riccati_cuda(rho, seeds_P, seeds_p, AB_blk, H_blk, g_blk, d_blk, k_blk, *,
                  nf: int, n_blocks_f: int, state_reg: bool, use_defect: bool):
-    """Launch the Riccati kernel.  Returns per-lane outputs (Mb, Nb, ...),
-    dJ (Mb, 2) and fail (Mb,) int32."""
+    """Launch the Riccati kernel.  rho is a 0-d tensor (one value for every
+    lane) or (Mb,) (one per lane); k_blk is int64.  Returns the per-step
+    outputs flattened over (lane, step), (Mb*Nb, ...), and dJ (2,) and fail
+    (0-d bool) reduced over the lanes by the kernel.  All outputs are views
+    of one allocation."""
     Mb, Nb, n, nm = AB_blk.shape
     m = nm - n
     if n > MAX_N or m > MAX_M:
         raise ValueError(f"the Riccati kernel takes n <= {MAX_N}, m <= {MAX_M}; got n={n}, m={m}")
-    build.check_input("rho", rho_l, (Mb,))
+    build.check_input("rho", rho, (Mb,) if rho.dim() else ())
     build.check_input("seeds_P", seeds_P, (Mb, n, n))
     build.check_input("seeds_p", seeds_p, (Mb, n))
     build.check_input("AB_blk", AB_blk, (Mb, Nb, n, nm))
     build.check_input("H_blk", H_blk, (Mb, Nb, nm, nm))
     build.check_input("g_blk", g_blk, (Mb, Nb, nm))
     build.check_input("d_blk", d_blk, (Mb, Nb, n))
-    build.check_input("k_blk", k_blk, (Mb, Nb), torch.int32)
+    build.check_input("k_blk", k_blk, (Mb, Nb), torch.int64)
     dev = AB_blk.device
-    for t in (rho_l, seeds_P, seeds_p, H_blk, g_blk, d_blk, k_blk):
+    for t in (rho, seeds_P, seeds_p, H_blk, g_blk, d_blk, k_blk):
         if t.device != dev:
             raise ValueError("all Riccati inputs must be on one device")
-    f32 = dict(device=dev, dtype=torch.float32)
-    P = torch.empty((Mb, Nb, n, n), **f32)
-    p = torch.empty((Mb, Nb, n), **f32)
-    K = torch.empty((Mb, Nb, m, n), **f32)
-    du = torch.empty((Mb, Nb, m), **f32)
-    ApBK = torch.empty((Mb, Nb, n, n), **f32)
-    Bdu = torch.empty((Mb, Nb, n), **f32)
-    dj = torch.empty((Mb, 2), **f32)
-    fail = torch.empty((Mb,), device=dev, dtype=torch.int32)
-    lib = build.library()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        status = lib.pddp_riccati(
-            seeds_P.data_ptr(), seeds_p.data_ptr(), rho_l.data_ptr(),
-            AB_blk.data_ptr(), H_blk.data_ptr(), g_blk.data_ptr(), d_blk.data_ptr(),
-            k_blk.data_ptr(), P.data_ptr(), p.data_ptr(), K.data_ptr(), du.data_ptr(),
-            ApBK.data_ptr(), Bdu.data_ptr(), dj.data_ptr(), fail.data_ptr(),
-            Mb, Nb, n, m, nf, n_blocks_f, int(state_reg), int(use_defect), stream)
-    build.check(status, "riccati")
+    steps = Mb * Nb
+    # P, p, K, du, ApBK, Bdu, dJ, fail, then the per-lane dJ and fail the
+    # kernel reduces and its counter of finished lanes (fail flags and the
+    # counter are int32 in float32-sized slots)
+    sizes = (steps * n * n, steps * n, steps * m * n, steps * m, steps * n * n, steps * n,
+             2, 1, 2 * Mb, Mb, 1)
+    buf = torch.empty(sum(sizes), device=dev, dtype=torch.float32)
+    P, p, K, du, ApBK, Bdu, dj, fail = buf.split(sizes)[:8]
+    ptrs, at = [], buf.data_ptr()
+    for size in sizes:
+        ptrs.append(at)
+        at += 4 * size
+    build.launch(
+        "pddp_riccati", dev, seeds_P.data_ptr(), seeds_p.data_ptr(), rho.data_ptr(),
+        1 if rho.dim() else 0, AB_blk.data_ptr(), H_blk.data_ptr(), g_blk.data_ptr(),
+        d_blk.data_ptr(), k_blk.data_ptr(), *ptrs[:6], ptrs[8], ptrs[9], ptrs[6], ptrs[7],
+        ptrs[10], Mb, Nb, n, m, nf, n_blocks_f, int(state_reg), int(use_defect), None)
     riccati_cuda.launches += 1
-    return P, p, K, du, ApBK, Bdu, dj, fail
+    # the kernel wrote fail as int32 0 or 1: its low byte is a valid bool
+    return (P.view(steps, n, n), p.view(steps, n), K.view(steps, m, n), du.view(steps, m),
+            ApBK.view(steps, n, n), Bdu.view(steps, n), dj, fail.view(torch.bool)[0])
 
 
 riccati_cuda.launches = 0
@@ -92,20 +96,17 @@ def make_riccati_block_call(cfg, n: int, m: int, mb: int | None = None):
     def bp(rho, seeds_P, seeds_p, AB_blk, H_blk, g_blk, d_blk, k_blk):
         dtype = AB_blk.dtype
         rho = torch.as_tensor(rho, dtype=dtype, device=AB_blk.device)
-        flat = lambda a: a.reshape((Mb * Nb,) + a.shape[2:])
         if AB_blk.device.type == "cpu":
+            flat = lambda a: a.reshape((Mb * Nb,) + a.shape[2:])
             P, p, K, du, ApBK, Bdu, dj, fail = run_block(
                 step, rho.expand(Mb), seeds_P, seeds_p, AB_blk, H_blk, g_blk,
                 d_blk, k_blk)
             return (flat(P), flat(p), flat(K), flat(du), flat(ApBK), flat(Bdu),
                     dj.sum(dim=(0, 1)), fail.any())
-        P, p, K, du, ApBK, Bdu, dj, fail = riccati_cuda(
-            rho.reshape(1).expand(Mb).contiguous(), seeds_P.contiguous(),
-            seeds_p.contiguous(), AB_blk.contiguous(), H_blk.contiguous(),
-            g_blk.contiguous(), d_blk.contiguous(),
-            k_blk.to(torch.int32).contiguous(), nf=nf, n_blocks_f=cfg.n_blocks_f,
+        return riccati_cuda(
+            rho, seeds_P.contiguous(), seeds_p.contiguous(), AB_blk.contiguous(),
+            H_blk.contiguous(), g_blk.contiguous(), d_blk.contiguous(),
+            k_blk.to(torch.int64).contiguous(), nf=nf, n_blocks_f=cfg.n_blocks_f,
             state_reg=cfg.state_reg, use_defect=use_defect)
-        return (flat(P), flat(p), flat(K), flat(du), flat(ApBK), flat(Bdu),
-                dj.sum(dim=0), fail.any())
 
     return bp

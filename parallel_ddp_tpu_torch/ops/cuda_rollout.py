@@ -101,16 +101,13 @@ def kuka_rollout_cuda(x_swept, u, K, du, xp, alphas, skip, *, ee_type: int,
         raise ValueError(f"unknown integrator {integrator}")
     xout = torch.empty((A, M, nf, NS), device=x_swept.device, dtype=torch.float32)
     uout = torch.empty((A, M, nf, NJ), device=x_swept.device, dtype=torch.float32)
-    cc = consts_tensor(ee_type, float(gravity), str(x_swept.device))
-    lib = build.library()
-    with torch.cuda.device(x_swept.device):
-        stream = torch.cuda.current_stream(x_swept.device).cuda_stream
-        status = lib.pddp_rollout(
-            cc.data_ptr(), x_swept.data_ptr(), u.data_ptr(), K.data_ptr(),
-            du.data_ptr(), xp.data_ptr(), alphas.data_ptr(), skip.data_ptr(),
-            xout.data_ptr(), uout.data_ptr(), A, M, nf, integrator,
-            dt, 0.5 * dt, dt / 6.0, stream)
-    build.check(status, "rollout")
+    cc = consts_tensor(ee_type, float(gravity), x_swept.device)
+    build.launch(
+        "pddp_rollout", x_swept.device,
+        cc.data_ptr(), x_swept.data_ptr(), u.data_ptr(), K.data_ptr(),
+        du.data_ptr(), xp.data_ptr(), alphas.data_ptr(), skip.data_ptr(),
+        xout.data_ptr(), uout.data_ptr(), A, M, nf, integrator,
+        dt, 0.5 * dt, dt / 6.0)
     kuka_rollout_cuda.launches += 1
     return xout, uout
 

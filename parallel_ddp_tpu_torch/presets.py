@@ -18,6 +18,7 @@ from parallel_ddp_tpu_torch.costs.ee import (
     KUKA_VEL_LIMITS,
     ee_cost,
 )
+from parallel_ddp_tpu_torch.device import default_device
 from parallel_ddp_tpu_torch.models.base import Plant
 from parallel_ddp_tpu_torch.models.kuka import kuka, kuka_params
 
@@ -64,8 +65,10 @@ def kuka_ee(num_time_steps=64, total_time=0.5, m_blocks=4, num_alpha=16,
 
 def ee_goal(xyz, rpy=(0.0, 0.0, 0.0), x_target=None, n_state: int = 14,
             device=None):
-    """Goal dict for the EE cost family, as float32 tensors on `device`."""
-    f32 = dict(dtype=torch.float32, device=device)
+    """Goal dict for the EE cost family, as float32 tensors on `device`
+    (default: the card, `device.default_device()`; "cpu" to ask for the CPU)."""
+    f32 = dict(dtype=torch.float32,
+               device=default_device() if device is None else device)
     return {
         "ee_goal": torch.as_tensor(np.concatenate([np.asarray(xyz, np.float32),
                                                    np.asarray(rpy, np.float32)]), **f32),

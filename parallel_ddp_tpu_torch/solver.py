@@ -4,7 +4,9 @@ Each iteration is
   backward pass (with rho-retry)  ->  forward sweep + multiple-shooting rollout +
   parallel line search  ->  accept/reject + rho schedule  ->  next-iteration
   derivative recompute,
-all on the device of the tensors passed in.  The reference package's
+all on the device of the tensors passed in (an x0 given as a list or numpy
+array goes to the card, `device.default_device()`, unless the call names a
+`device`).  The reference package's
 `lax.while_loop` becomes a Python `while` loop that reads its exit flag on the
 host: one device sync per iteration (none after the last one allowed by the
 iteration budget), plus one per rho attempt inside the backward pass.
@@ -20,7 +22,9 @@ import torch
 
 from parallel_ddp_tpu_torch.config import CostWeights, SolveOutput, SolverConfig
 from parallel_ddp_tpu_torch.costs.base import CostModel
+from parallel_ddp_tpu_torch.device import as_tensor
 from parallel_ddp_tpu_torch.models.base import Plant
+from parallel_ddp_tpu_torch.ops.cuda_sim_chain import make_sim_chain
 from parallel_ddp_tpu_torch.ops.integrators import make_step, make_step_jacobian
 from parallel_ddp_tpu_torch.parallel.backward import backward_pass
 from parallel_ddp_tpu_torch.parallel.forward import forward_pass, line_search
@@ -43,20 +47,16 @@ def _derivatives(cfg, step_jac, cost_quad, x, u, goal, w):
     return AB, H, g
 
 
-def open_loop_rollout(cfg: SolverConfig, step_fn, x0_state, u):
+def open_loop_rollout(cfg: SolverConfig, open_loop, x0_state, u):
     """Multiple-shooting open-loop rollout from the block-start states in
-    x0_state (the initial `forwardSimKern` rollout, nisInitHelpers.cuh:643).
-    Returns (x, d)."""
+    x0_state (the initial `forwardSimKern` rollout, nisInitHelpers.cuh:643):
+    every block's Nf steps as one call of `open_loop`, a `SimChain.open_loop`
+    (`make_sim_chain(plant, integrator, dt).open_loop`).  Returns (x, d)."""
     N, M, Nf = cfg.num_time_steps, cfg.m_blocks_f, cfg.n_blocks_f
     n = x0_state.shape[-1]
     x_blk = x0_state.reshape(M, Nf, n)
     u_blk = u.reshape(M, Nf, -1)
-    xc = x_blk[:, 0]
-    xs = []
-    for t in range(Nf):
-        xc = step_fn(xc, u_blk[:, t])
-        xs.append(xc)
-    x_next = torch.stack(xs, dim=1)                                # (M, Nf, n)
+    x_next = open_loop(x_blk[:, 0], u_blk)                         # (M, Nf, n)
     x_new = torch.cat([x_blk[:, :1], x_next[:, :-1]], dim=1).reshape(N, n)
     d = torch.zeros((N, n), dtype=x0_state.dtype, device=x0_state.device)
     if M > 1:
@@ -74,6 +74,7 @@ class _Solver:
             raise NotImplementedError(f"not ported yet: {', '.join(unported)}")
         self.plant, self.cost, self.cfg = plant, cost, cfg
         self.step_fn = make_step(plant, cfg.integrator, cfg.dt)
+        self.chain = make_sim_chain(plant, cfg.integrator, cfg.dt)
         if plant.batched_step_jac is not None:
             self.step_jac = plant.batched_step_jac(cfg.integrator, cfg.dt)
             self.step_jac._is_batched = True
@@ -106,9 +107,10 @@ class _Solver:
         initial_rollout: bool = False,
         ignore_first_defect: bool = False,
         iter_limit: Optional[int] = None,
+        device=None,
     ) -> SolveOutput:
         cfg, cost, plant = self.cfg, self.cost, self.plant
-        x0 = torch.as_tensor(x0)
+        x0 = as_tensor(x0, device=device)
         dtype, device = x0.dtype, x0.device
         if device.type == "cuda" and torch.backends.cuda.matmul.allow_tf32:
             # TF32 keeps ~3 decimal digits: Huu turns indefinite and the
@@ -129,7 +131,7 @@ class _Solver:
             return cost.stage(xk, uk, k, goal, w)
 
         if initial_rollout:
-            x, d = open_loop_rollout(cfg, self.step_fn, x0, u0)
+            x, d = open_loop_rollout(cfg, self.chain.open_loop, x0, u0)
         else:
             x = x0
             d = d0 if d0 is not None else zeros(N, n)
@@ -233,7 +235,7 @@ def make_ilqr_solver(plant: Plant, cost: CostModel, cfg: SolverConfig) -> _Solve
 
     Returns solve(x0, u0, goal, weights=None, *, P0=None, p0=None, d0=None,
                   initial_rollout=False, ignore_first_defect=False,
-                  iter_limit=None) -> SolveOutput."""
+                  iter_limit=None, device=None) -> SolveOutput."""
     return _Solver(plant, cost, cfg)
 
 

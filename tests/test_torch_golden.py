@@ -41,7 +41,8 @@ def run_case(m_blocks: int, seed: int, max_iter: int):
     rng = np.random.default_rng(seed)
     x_start = (rng.standard_normal(14) * 0.3).astype(np.float32)
     x0 = torch.as_tensor(np.broadcast_to(x_start, (n, 14)).copy())
-    out = solver(x0, torch.zeros(n, 7), ee_goal([0.3, -0.5, 0.4]), initial_rollout=True)
+    out = solver(x0, torch.zeros(n, 7), ee_goal([0.3, -0.5, 0.4], device="cpu"),
+                 initial_rollout=True)
     iters = int(out.iters)
     return {
         "iters": iters,

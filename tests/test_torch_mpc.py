@@ -162,7 +162,7 @@ def test_plant_simulator_matches_reference():
     ref_plant = ref_kuka_ee(num_time_steps=N, m_blocks=2, num_alpha=A).plant
     plant = kuka_ee(num_time_steps=N, m_blocks=2, num_alpha=A).plant
     ref = RefSimulator(ref_plant, rate_hz=500.0, substeps=2, integrator=3)
-    sim = PlantSimulator(plant, rate_hz=500.0, substeps=2, integrator=3)
+    sim = PlantSimulator(plant, rate_hz=500.0, substeps=2, integrator=3, device="cpu")
     rng = np.random.default_rng(3)
     x = rng.normal(0, 0.5, 14).astype(np.float32)
     for _ in range(3):
@@ -202,10 +202,13 @@ def _reference_loops():
     return jax.device_get(good), jax.device_get(bad)
 
 
-def _port_loop(x0):
+def _port_loop(x0, hook=True, steps=STEPS):
     _, port = _controllers(2, **LOOP_MPC)
+    if not hook:      # the same plant without its simulation-chain op
+        plant = dataclasses.replace(port.plant, sim_chain=None)
+        port = driver.MPCController(plant, port.cost, port.cfg, port.mpc)
     run = make_device_mpc_loop(port, sim_rate_hz=SIM_RATE, control_period_s=CONTROL_PERIOD)
-    goals = {k: torch.as_tensor(v) for k, v in _loop_goals(np).items()}
+    goals = {k: torch.as_tensor(v)[:steps] for k, v in _loop_goals(np).items()}
     return run(interop.mpc_state(_start_state()), torch.as_tensor(x0), 0.0, goals,
                fig8_weights())
 
@@ -224,6 +227,33 @@ def test_closed_loop_matches_reference():
     assert float(want.state.t0) > 0                               # shifted
     assert float(got.state.t0) == pytest.approx(float(want.state.t0))
     assert got.host_syncs > 0
+
+
+def test_closed_loop_without_chain_hook_is_the_same():
+    """A plant that ships no `sim_chain` still runs, through the loops over
+    `make_step`; on CPU tensors the Kuka's chain is those loops, so two
+    control steps of the closed loop agree bit for bit."""
+    with_hook, without = _port_loop(X_INIT, steps=2), _port_loop(X_INIT, hook=False, steps=2)
+    for name in ("x", "ee_err", "J", "accepted", "ok"):
+        assert torch.equal(getattr(with_hook, name), getattr(without, name)), name
+    for a, b in zip(with_hook.state, without.state):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("substeps", [1, 3])
+def test_plant_simulator_substeps_are_the_step_loop(substeps):
+    """`PlantSimulator.step` holds the control over its substeps: one chain
+    call, equal to the step repeated."""
+    plant = kuka_ee(num_time_steps=N, m_blocks=2, num_alpha=A).plant
+    sim = PlantSimulator(plant, rate_hz=500.0, substeps=substeps, integrator=2, device="cpu")
+    rng = np.random.default_rng(substeps)
+    x, u = rng.normal(0, 0.5, 14).astype(np.float32), rng.normal(0, 5.0, 7).astype(np.float32)
+    from parallel_ddp_tpu_torch.ops.integrators import make_step
+    step = make_step(plant, 2, (1.0 / 500.0) / substeps)
+    want = torch.as_tensor(x)
+    for _ in range(substeps):
+        want = step(want, torch.as_tensor(u))
+    np.testing.assert_array_equal(sim.step(x, u), want.numpy())
 
 
 def test_closed_loop_failure_reset_matches_reference():
@@ -265,7 +295,7 @@ def _port_lockstep():
     _, port = _controllers(2, **LOOP_MPC)
     st = interop.mpc_state(_start_state())
     port.init_state = lambda *args, **kwargs: st
-    sim = PlantSimulator(port.plant, rate_hz=SIM_RATE, integrator=1)
+    sim = PlantSimulator(port.plant, rate_hz=SIM_RATE, integrator=1, device="cpu")
     goals = {k: torch.as_tensor(v) for k, v in _loop_goals(np).items()}
     got = run_lockstep_mpc(port, sim, X_INIT, duration=LOCKSTEP_STEPS * CONTROL_PERIOD,
                            goal_fn=_lockstep_goal_fn(goals), control_period=CONTROL_PERIOD,

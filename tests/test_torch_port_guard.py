@@ -45,7 +45,7 @@ def test_port_has_modules():
                      "ops/cuda_rollout.py", "ops/cuda_riccati.py", "ops/build.py",
                      "parallel/backward.py", "parallel/forward.py", "costs/ee.py",
                      "mpc/controls.py", "mpc/driver.py", "mpc/device_loop.py",
-                     "mpc/simulator.py"):
+                     "mpc/simulator.py", "ops/cuda_sim_chain.py", "device.py"):
         assert expected in names
 
 
@@ -61,6 +61,74 @@ def test_guard_detects_forbidden_imports(tmp_path):
                      "import parallel_ddp_tpu_torch\n")
     assert [n for n in _imports(probe) if _forbidden(n)] == [
         "jax.numpy", "parallel_ddp_tpu.solver"]
+
+
+def _entry_points():
+    """Calls that make tensors from non-tensor input and are given no device."""
+    import dataclasses
+
+    import numpy as np
+
+    from parallel_ddp_tpu_torch.mpc.driver import MPCConfig, MPCController
+    from parallel_ddp_tpu_torch.mpc.simulator import PlantSimulator
+    from parallel_ddp_tpu_torch.presets import ee_goal, kuka_ee
+    from parallel_ddp_tpu_torch.solver import make_ilqr_solver
+
+    prob = kuka_ee(num_time_steps=16, m_blocks=2, num_alpha=4)
+    cfg = dataclasses.replace(prob.cfg, pallas_riccati=True, max_iter=1)
+    ctrl = MPCController(prob.plant, prob.cost, cfg, MPCConfig(max_iters_per_solve=1))
+    solver = make_ilqr_solver(prob.plant, prob.cost, cfg)
+    x = np.zeros(14, np.float32)
+    goal_kw = dict(xyz=[0.3, -0.3, 0.9])
+    return {
+        "ee_goal": lambda **kw: ee_goal(**goal_kw, **kw)["ee_goal"],
+        "init_state": lambda **kw: ctrl.init_state(
+            x, goal=ee_goal(**goal_kw, **kw), warmup_iters=1, **kw).x,
+        "solver": lambda **kw: solver(
+            np.zeros((16, 14), np.float32), np.zeros((16, 7), np.float32),
+            ee_goal(**goal_kw, **kw), initial_rollout=True, **kw).x,
+        "plant_simulator": lambda **kw: PlantSimulator(prob.plant, **kw).device,
+    }
+
+
+@pytest.mark.parametrize("name", ["ee_goal", "init_state", "solver", "plant_simulator"])
+def test_entry_points_default_to_the_card(name):
+    """Given lists or numpy arrays and no `device`, an entry point builds on
+    the card, or raises where there is none: it never falls back to the CPU.
+    `device="cpu"` asks for the CPU."""
+    import torch
+
+    call = _entry_points()[name]
+    if torch.cuda.is_available():
+        out = call()
+        assert (out if isinstance(out, torch.device) else out.device).type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    out = call(device="cpu")
+    assert (out if isinstance(out, torch.device) else out.device).type == "cpu"
+
+
+def test_cpu_tensors_stay_on_the_cpu():
+    """A tensor the caller passes keeps its device: that is the caller asking."""
+    import dataclasses
+
+    import torch
+
+    from parallel_ddp_tpu_torch.device import as_tensor
+    from parallel_ddp_tpu_torch.mpc.driver import MPCConfig, MPCController
+    from parallel_ddp_tpu_torch.presets import ee_goal, kuka_ee
+
+    assert as_tensor(torch.zeros(3)).device.type == "cpu"
+    assert as_tensor(torch.zeros(3), dtype=torch.float64).dtype == torch.float64
+    prob = kuka_ee(num_time_steps=16, m_blocks=2, num_alpha=4)
+    cfg = dataclasses.replace(prob.cfg, pallas_riccati=True)
+    ctrl = MPCController(prob.plant, prob.cost, cfg, MPCConfig(max_iters_per_solve=1))
+    goal = ee_goal([0.3, -0.3, 0.9], device="cpu")
+    st = ctrl.init_state(torch.zeros(14), goal=goal, warmup_iters=1)
+    assert all(a.device.type == "cpu" for a in st)
+    st2, info = ctrl.step(st, [0.0] * 14, 0.01, goal)       # a list follows the state
+    assert all(a.device.type == "cpu" for a in st2) and info.J.device.type == "cpu"
 
 
 def _run_smoke(cwd):

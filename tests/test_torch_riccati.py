@@ -104,6 +104,35 @@ def test_rho_retry_matches_reference(pallas):
                                    rtol=2e-4, atol=2e-5, err_msg=name)
 
 
+@pytest.mark.parametrize("n,m", [(14, 7), (4, 2)], ids=["kuka", "small"])
+def test_fused_op_rho_per_lane_and_scalar_agree(n, m):
+    """The fused op takes rho as one value or one per lane (the kernel reads
+    either); equal values give equal results, and unequal ones act per lane."""
+    N, Mb = 16, 4
+    cfg = dataclasses.replace(interop.solver_config(RefConfig(
+        num_time_steps=N, m_blocks_b=Mb, m_blocks_f=2, num_alpha=4)), pallas_riccati=True)
+    AB, H, g, Pp, pp, d, _, _ = (torch.as_tensor(a) for a in _synthetic(N, n, m, seed=3))
+    Nb, nm = N // Mb, n + m
+    AB_blk = torch.cat([AB, torch.zeros(1, n, nm)]).reshape(Mb, Nb, n, nm)
+    args = (Pp[Nb:N:Nb].clone(), pp[Nb:N:Nb].clone())
+    seeds_P = torch.cat([args[0], H[N - 1, :n, :n][None]])
+    seeds_p = torch.cat([args[1], g[N - 1, :n][None]])
+    rest = (seeds_P, seeds_p, AB_blk, H.reshape(Mb, Nb, nm, nm), g.reshape(Mb, Nb, nm),
+            d.reshape(Mb, Nb, n))
+    bp = cuda_riccati.make_riccati_block_call(cfg, n, m)
+    k64 = torch.arange(N).reshape(Mb, Nb)
+    one = bp(torch.tensor(0.7), *rest, k64)
+    per_lane = bp(torch.full((Mb,), 0.7), *rest, k64.to(torch.int32))
+    for a, b in zip(one, per_lane):
+        assert torch.equal(a, b)
+    assert one[0].shape == (N, n, n) and one[6].shape == (2,) and one[7].dtype == torch.bool
+    mixed = bp(torch.tensor([0.7, 0.7, 5.0, 0.7]), *rest, k64)
+    lane = lambda t, b: t.reshape((Mb, Nb) + t.shape[1:])[b]
+    for field in range(6):
+        assert torch.equal(lane(mixed[field], 0), lane(one[field], 0))
+        assert not torch.equal(lane(mixed[field], 2), lane(one[field], 2))
+
+
 def test_fused_op_refuses_what_it_cannot_take():
     cfg = interop.solver_config(RefConfig(num_time_steps=16, m_blocks_b=4))
     with pytest.raises(ValueError):
@@ -113,4 +142,7 @@ def test_fused_op_refuses_what_it_cannot_take():
             [(), (4, 3, 3), (4, 3), (4, 4, 3, 5), (4, 4, 5, 5), (4, 4, 5), (4, 4, 3)]]
     with pytest.raises(ValueError, match="CUDA"):
         bp(*args, torch.zeros((4, 4), dtype=torch.int64, device="meta"))
+    with pytest.raises(ValueError, match="CUDA"):                 # rho per lane
+        bp(torch.zeros(4, device="meta"), *args[1:],
+           torch.zeros((4, 4), dtype=torch.int32, device="meta"))
     assert cuda_riccati.riccati_cuda.launches == 0

@@ -107,13 +107,13 @@ def test_open_loop_rollout_matches_reference():
     rng = np.random.default_rng(0)
     u = rng.normal(0, 3.0, (N, 7)).astype(np.float32)
     x0 = np.zeros((N, 14), np.float32)
-    x, d = open_loop_rollout(solver.cfg, solver.step_fn, torch.as_tensor(x0), torch.zeros(N, 7))
+    x, d = open_loop_rollout(solver.cfg, solver.chain.open_loop, torch.as_tensor(x0), torch.zeros(N, 7))
     np.testing.assert_allclose(x.numpy(), np.asarray(x_init), atol=1e-6)
     np.testing.assert_allclose(d.numpy(), np.asarray(d_init), atol=1e-6)
     prob = ref_kuka_ee(num_time_steps=N, m_blocks=M, num_alpha=A)
     step = ref_make_step(prob.plant, cfg.integrator, cfg.dt)
     xr, dr = ref_open_loop_rollout(cfg, step, jnp.asarray(x0), jnp.asarray(u))
-    x, d = open_loop_rollout(solver.cfg, solver.step_fn, torch.as_tensor(x0), torch.as_tensor(u))
+    x, d = open_loop_rollout(solver.cfg, solver.chain.open_loop, torch.as_tensor(x0), torch.as_tensor(u))
     np.testing.assert_allclose(x.numpy(), np.asarray(xr), rtol=1e-5, atol=1e-5)
     np.testing.assert_allclose(d.numpy(), np.asarray(dr), rtol=1e-5, atol=1e-5)
 
