@@ -14,7 +14,10 @@ Phases (each prints one line; any failure exits non-zero):
                tolerance; each one's time against the plain version's and
                against its roofline bound (the forward-dynamics kernel at
                B = 1 and at B = 8192, the batched dynamics benchmark's; the
-               simulation chain open loop at T = 63 Euler, 4 x 16 Euler and
+               RBD-Jacobian kernel also through its Euler epilogue, the
+               discrete AB, against the composer on the plain Jacobian; the
+               rollout kernel Euler and RK3; the simulation chain open loop
+               at T = 63 Euler, 4 x 16 Euler and
                T = 15 RK3; the Riccati sweep at the Kuka's sizes, on blocks of
                96 steps, longer than its ring of staged steps, and at n = 4,
                m = 2, the run-time-size body); the wrappers' host cost per enqueue apart
@@ -42,14 +45,17 @@ Phases (each prints one line; any failure exits non-zero):
                (its boundary defects are single forward-dynamics
                evaluations); the chain's trajectory-runner
                mode is held against its plain version from the settled
-               state; the stages of one control step are timed, the warm
+               state; the stages of one control step are timed (derivative
+               stage, backward pass, forward pass and their pieces), the warm
                start and the substeps also the way they ran before the chain
                kernel (one forward-dynamics launch per step).
   7. profile — one torch.profiler run each of a warm solve and a fig-8
                control step: kernel launches, stream syncs, device time and
                the card's busy share.
 Then one JSON line with every kernel's numbers, the card line, and last
-{"ok": true, "device": {...}}.  Takes about 3 minutes on an H100.
+{"ok": true, "device": {...}}.  Takes 2 to 3 minutes on an H100.
+`python3 chip_smoke.py --kernels-only` stops after phase 3 and prints no
+result line: a short run while working on a kernel.
 
 Imports torch, numpy and the port only (never jax).
 """
@@ -314,9 +320,28 @@ def kernel_phase(torch, np, dev):
     got = cuda_rbd.kuka_jac_qdd_cuda(x, u, 1, 0.0)
     ref = cuda_rbd.kuka_jac_qdd_plain(x, u, 1, 0.0)
     err, ok = compare("rbd_jac", got, ref)
+    # the Euler AB = E + dt [[0 I 0]; [J]] the solver's derivative stage asks
+    # for, against the composer on the plain Jacobian
+    ab_call = cuda_rbd.make_kuka_ab(1, 0.0, 1, dt)
+    plain_jac = lambda xs, us: torch.cat(
+        [torch.cat([torch.zeros(len(xs), nu, nu, device=dev), torch.eye(nu, device=dev).expand(
+            len(xs), nu, nu), torch.zeros(len(xs), nu, nu, device=dev)], dim=2),
+         cuda_rbd.kuka_jac_qdd_plain(xs, us, 1, 0.0)[0]], dim=1)
+    ab_plain = cuda_rbd.make_ab_composer(None, plain_jac, 1, dt, nx, nu)
+    ab_err, ab_ok = compare("rbd_jac", [ab_call(x, u)], [ab_plain(x, u)])
+    host_us, kernel_us = host_and_kernel_us(lambda: cuda_rbd.kuka_jac_qdd_cuda(x, u, 1, 0.0), 1000)
+    ab_host_us, ab_kernel_us = host_and_kernel_us(lambda: ab_call(x, u), 1000)
+    ab_ms = cuda_ms(lambda: ab_call(x, u), 50)
+    print(f"kernels: rbd_jac wrapper: host {host_us:.2f} us per enqueue (1000 enqueues, no "
+          f"sync); kernel alone {kernel_us:.2f} us (CUDA-graph replay); Euler AB (63, 14, 21): "
+          f"max_abs_err {ab_err:.3e} ({'ok' if ab_ok else 'OUT OF TOLERANCE'}), {ab_ms:.4f} ms "
+          f"per call, host {ab_host_us:.2f} us per enqueue, device work alone {ab_kernel_us:.2f} "
+          f"us (CUDA-graph replay of every launch of the call)", flush=True)
     results.append(dict(
         name="rbd_jac", route="cuda", source="parallel_ddp_tpu_torch/csrc/rbd_jac.cu",
-        replaces="parallel_ddp_tpu/ops/pallas_rbd.py:48", max_abs_err=err, ok=ok,
+        replaces="parallel_ddp_tpu/ops/pallas_rbd.py:48", max_abs_err=max(err, ab_err),
+        ok=ok and ab_ok, host_us=host_us, kernel_us=kernel_us, ms_euler_ab=ab_ms,
+        host_us_euler_ab=ab_host_us, kernel_us_euler_ab=ab_kernel_us,
         ms=cuda_ms(lambda: cuda_rbd.kuka_jac_qdd_cuda(x, u, 1, 0.0), 50),
         plain_ms=cuda_ms(lambda: cuda_rbd.kuka_jac_qdd_plain(x, u, 1, 0.0), 5),
         **roofline((x, u), got, count_ops(lambda: cuda_rbd.kuka_jac_qdd_plain(x, u, 1, 0.0)))))
@@ -342,10 +367,17 @@ def kernel_phase(torch, np, dev):
     skip[-1, -1] = 1                          # k = N-1
     ro_args = (x_sw, uu, K, du, xp, alphas, skip)
     ro_kw = dict(ee_type=1, gravity=0.0, integrator=1, dt=dt, m_blocks=M)
+    host_us, kernel_us = host_and_kernel_us(
+        lambda: cuda_rollout.kuka_rollout_cuda(*ro_args, **ro_kw), 1000)
+    _, kernel_us_rk3 = host_and_kernel_us(
+        lambda: cuda_rollout.kuka_rollout_cuda(*ro_args, **dict(ro_kw, integrator=3)), 10)
+    print(f"kernels: rollout wrapper: host {host_us:.2f} us per enqueue (1000 enqueues, no "
+          f"sync); kernel alone {kernel_us:.2f} us Euler ({kernel_us / (N // M):.3f} us per "
+          f"step), {kernel_us_rk3:.2f} us RK3 (CUDA-graph replay)", flush=True)
     results.append(dict(
         name="rollout", route="cuda", source="parallel_ddp_tpu_torch/csrc/rollout.cu",
         replaces="parallel_ddp_tpu/ops/pallas_rollout.py:76", max_abs_err=rollout_err,
-        ok=rollout_ok,
+        ok=rollout_ok, host_us=host_us, kernel_us=kernel_us, kernel_us_rk3=kernel_us_rk3,
         ms=cuda_ms(lambda: cuda_rollout.kuka_rollout_cuda(*ro_args, **ro_kw), 50),
         plain_ms=cuda_ms(lambda: cuda_rollout.kuka_rollout_plain(*ro_args, **ro_kw), 3),
         **roofline(ro_args, got, count_ops(
@@ -638,6 +670,8 @@ def fig8_phase(torch, np, dev, card):
     from parallel_ddp_tpu_torch.mpc.driver import MPCConfig, MPCController, MPCState
     from parallel_ddp_tpu_torch.ops import cuda_rollout, cuda_sim_chain
     from parallel_ddp_tpu_torch.ops.integrators import make_step
+    from parallel_ddp_tpu_torch.parallel.backward import backward_pass
+    from parallel_ddp_tpu_torch.parallel.forward import forward_pass, line_search
     from parallel_ddp_tpu_torch.presets import fig8_weights, kuka_ee
     from parallel_ddp_tpu_torch.solver import _derivatives
 
@@ -779,7 +813,28 @@ def fig8_phase(torch, np, dev, card):
     plan_step = make_step(prob.plant, cfg.integrator, cfg.dt)      # one qdd launch per step
     plant_step = make_step(prob.plant, 1, sim_dt)
     u_roll = st0.u[:cfg.num_time_steps - 1]
+    # one forward pass as the solver runs it (sweep, rollout kernel, stage
+    # cost, line search) on the gains of one backward pass from this state
+    sv = ctrl._solver
+    AB0, H0, g0 = _derivatives(sv.cfg, sv.step_jac, prob.cost.quad, st0.x, st0.u, goal0, w)
+    backward_stage = lambda: backward_pass(
+        sv.cfg, AB0, H0, g0, st0.P, st0.p, st0.d, st0.x, st0.x,
+        torch.full((), sv.cfg.rho_init, device=dev), torch.full((), 1.0, device=dev))
+    bp0 = backward_stage()
+    stage_cost = lambda xk, uk, k: prob.cost.stage(xk, uk, k, goal0, w)
+    J_prev = stage_cost(st0.x, st0.u, ks).sum()
+    alphas = sv.alphas(dev, torch.float32)
+    no_ignore = torch.full((), False, dtype=torch.bool, device=dev)
+
+    def forward_stage():
+        ro = forward_pass(sv.cfg, sv.step_fn, stage_cost, st0.x, st0.u, st0.d, bp0.K, bp0.du,
+                          bp0.ApBK, bp0.Bdu, st0.x, alphas, fused_sim=sv.fused_sim)
+        return line_search(sv.cfg, ro.J, ro.max_defect, alphas, bp0.dJexp, J_prev, no_ignore)
+
     stage_ms = {
+        "forward pass (sweep + rollout kernel + stage cost + line search)": cuda_ms(
+            forward_stage, 20),
+        "backward pass": cuda_ms(backward_stage, 20),
         "control step (a 1-step loop call)": cuda_ms(control_step, 10),
         "MPC step (warm start + solve)": cuda_ms(lambda: ctrl.step(st0, x0, t0_dev, goal0, w), 10),
         "derivative stage": cuda_ms(lambda: _derivatives(
@@ -850,6 +905,9 @@ def main():
           f"ptxas: {' | '.join(ptxas_summary(log))}", flush=True)
 
     kernels = kernel_phase(torch, np, dev)
+    if sys.argv[1:] == ["--kernels-only"]:      # a short run while working on a kernel
+        print("stopped after the kernel phase (--kernels-only): no result line", flush=True)
+        return
     solver, cold, goal, launches = solve_phase(torch, np, dev)
     median_ms, warm_solve = timing_phase(torch, np, dev, solver, cold, goal)
     fig8_launches, control_step, runner = fig8_phase(torch, np, dev, card)

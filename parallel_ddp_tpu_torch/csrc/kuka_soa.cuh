@@ -3,10 +3,13 @@
 //
 // This is `models/kuka/soa.py::qdd_channels` written out by hand in C++: the
 // same RNEA bias sweep (gravity as base acceleration), the same CRBA mass
-// matrix and the same unrolled 7x7 Cholesky solve, step for step.  The RBD
-// Jacobian kernel (rbd_jac.cu) instantiates it on a dual number and so gets
-// one forward-mode tangent per thread; the rollout kernel (rollout.cu)
-// instantiates it on float.
+// matrix and the same unrolled 7x7 Cholesky solve, step for step.  One
+// thread runs a whole evaluation: the forward-dynamics and simulation-chain
+// kernels (qdd.cu, sim_chain.cu) instantiate it on float.  The rollout and
+// RBD-Jacobian kernels (rollout.cu, rbd_jac.cu) run the same formulas split
+// over a thread group (kuka_soa_group.cuh, built on the helpers here), on
+// float and on the dual number defined below, which carries one forward-mode
+// tangent.
 //
 // Differences from the Python core, all in rounding only:
 //   * the Python core skips the zero entries of the spatial inertias when it
@@ -34,10 +37,22 @@
 #define KC_G (KC_EE + 3)               // gravity
 #define KC_SIZE (KC_G + 1)
 
+// Built with -DKUKA_PHASE_CLOCKS (scripts/torch_dynamics_phases.py only),
+// thread 0 of block 0 records clock64() at the phase boundaries of kuka_qdd.
+#ifdef KUKA_PHASE_CLOCKS
+#define KUKA_N_CLOCKS 7
+__device__ long long kuka_phase_clk[KUKA_N_CLOCKS];
+#define KUKA_CLOCK(k) \
+  do { if (threadIdx.x == 0 && blockIdx.x == 0) kuka_phase_clk[k] = clock64(); } while (0)
+#else
+#define KUKA_CLOCK(k)
+#endif
+
 // ---------------------------------------------------------------- scalars --
 
-// Forward-mode dual number: value and one tangent.
-struct Dual {
+// Forward-mode dual number: value and one tangent (8-byte aligned: one
+// 64-bit access where it lives in shared memory).
+struct __align__(8) Dual {
   float v, d;
   __device__ __forceinline__ Dual() : v(0.f), d(0.f) {}
   __device__ __forceinline__ Dual(float value) : v(value), d(0.f) {}
@@ -166,9 +181,11 @@ template <typename T>
 __device__ void kuka_qdd(const float* __restrict__ cc, const T q[KUKA_NJ], const T qd[KUKA_NJ],
                          const T tau[KUKA_NJ], T qdd[KUKA_NJ]) {
   const int n = KUKA_NJ;
+  KUKA_CLOCK(0);
   T cq[KUKA_NJ], sq[KUKA_NJ];
 #pragma unroll
   for (int i = 0; i < n; ++i) { cq[i] = s_cos(q[i]); sq[i] = s_sin(q[i]); }
+  KUKA_CLOCK(1);
 
   // --- forward sweep: velocities and bias accelerations (qdd = 0) ---
   T w[3] = {T(0.f), T(0.f), T(0.f)};
@@ -217,6 +234,7 @@ __device__ void kuka_qdd(const float* __restrict__ cc, const T q[KUKA_NJ], const
     f_link[i][5] = fa[5] + c3[2];
   }
 
+  KUKA_CLOCK(2);
   // --- backward sweep: bias torques ---
   T c_bias[KUKA_NJ];
   {
@@ -236,6 +254,7 @@ __device__ void kuka_qdd(const float* __restrict__ cc, const T q[KUKA_NJ], const
     }
   }
 
+  KUKA_CLOCK(3);
   // --- CRBA: composite inertia ic = [[A, B], [B^T, D]], leaf to root ---
   T M[KUKA_NJ][KUKA_NJ];
   T A[3][3], Bm[3][3], D[3][3];
@@ -304,6 +323,7 @@ __device__ void kuka_qdd(const float* __restrict__ cc, const T q[KUKA_NJ], const
       }
   }
 
+  KUKA_CLOCK(4);
   // --- qdd = M^{-1} (tau - C) by unrolled Cholesky (soa._chol_solve7) ---
   T L[KUKA_NJ][KUKA_NJ];
 #pragma unroll
@@ -321,6 +341,7 @@ __device__ void kuka_qdd(const float* __restrict__ cc, const T q[KUKA_NJ], const
       L[i][j] = a2 * inv;
     }
   }
+  KUKA_CLOCK(5);
   T z[KUKA_NJ];
 #pragma unroll
   for (int i = 0; i < n; ++i) {
@@ -336,6 +357,7 @@ __device__ void kuka_qdd(const float* __restrict__ cc, const T q[KUKA_NJ], const
     for (int k = i + 1; k < n; ++k) acc = acc - L[k][i] * qdd[k];
     qdd[i] = acc / L[i][i];
   }
+  KUKA_CLOCK(6);
 }
 
 // Continuous xdot = [qd; qdd] for x = [q; qd] (ops/integrators.py _xdot).

@@ -1,5 +1,6 @@
-// One explicit integrator step of the Kuka iiwa-14 in float, shared by the
-// rollout kernel (rollout.cu) and the simulation-chain kernel (sim_chain.cu).
+// One explicit integrator step of the Kuka iiwa-14 in float, in one thread:
+// the simulation-chain kernel's step (sim_chain.cu).  The rollout kernel
+// (rollout.cu) spreads the same formulas over a thread group.
 #pragma once
 
 #include "kuka_soa.cuh"

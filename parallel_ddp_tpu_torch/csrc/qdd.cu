@@ -6,7 +6,7 @@
 // 1024 samples, one scalar channel per VMEM tile.
 //
 // Design: one thread per sample runs kuka_qdd<float> (kuka_soa.cuh, the
-// same chain the rollout kernel instantiates) entirely in registers: it
+// chain the simulation-chain kernel steps) entirely in registers: it
 // reads 84 bytes and writes 28 bytes per sample, and no intermediate of the
 // ~2k-operation chain leaves the thread.  The TPU's lane tiling has no
 // counterpart here: a warp's 32 samples are its lanes.

@@ -11,85 +11,186 @@
 // except where skip[b, t] is set (by default only k = N-1, the horizon's last
 // step), where u_new = u[k] and x is held (pallas_rollout.py:87,97-101).
 //
-// Design: one thread per lane.  It reads u, K, du and xp of its own block
-// straight from device memory, so nothing is broadcast over alpha; alpha
-// lanes of one block read the same addresses and share them through L1.
+// What bounds it on the H100: 64 lanes of Nf = 16 dependent steps, each a
+// ~2k-operation dataflow: it is latency-bound by one lane's serial chain,
+// 3 orders above the roofline.  The first version ran that chain in one
+// thread a lane (~9 us a step).
 //
-// What bounds it on the H100: at the main path (16 alphas x 4 blocks = 64
-// lanes, Nf = 16) the launch is 64 threads, each running Nf dependent steps
-// of a ~2k-operation dataflow (3x that for RK3).  It is latency-bound: the
-// card is almost idle and the time is one thread's serial chain.  The design
-// keeps that chain short by holding the state in registers across the steps
-// and doing nothing else: no shared memory, no synchronisation.
+// Design: a thread block per (shooting block, chunk of up to 32 alphas) of
+// KG_WARPS warps; lane l of every warp works on alpha l, and the threads with
+// lane l are that rollout lane's group (kuka_soa_group.cuh): the dynamics'
+// roles run side by side in the warps, so a step's chain is the longest role
+// of each stage, not the whole operation count.
+//   * What the alphas of a shooting block share (its K, u, du, xp and skip,
+//     and the chain constants) is staged into shared memory once a block.
+//   * Warp w < 7 owns state elements w and 7 + w of every lane: it keeps
+//     them in registers over the steps, computes row w of the feedback and
+//     cos/sin of joint w in one stage, and does the integrator's update for
+//     its two elements.  The stage state the group shares is in the
+//     workspace column.  Four block barriers an Euler step.
+//   * One instance per integrator; a skipped step (uniform over the block)
+//     runs no dynamics.
+//   * Outputs: each warp stores its element of 32 lanes as it is made (21
+//     small stores a step, off the chain: 21.5 KB in all at the main path).
 
 #include <cuda_runtime.h>
 
-#include "kuka_step.cuh"
+#include "kuka_soa_group.cuh"
 
-#define RO_NS KUKA_NS
+#define RO_NS (2 * KUKA_NJ)
+#define RO_STEP_FLOATS (KUKA_NJ * RO_NS + 2 * KUKA_NJ + RO_NS)  // K, u, du, xp of one step
+#define RO_SMEM_LIMIT 232448                                    // 227 KB a block
 
-__global__ void rollout_kernel(const float* __restrict__ cc, const float* __restrict__ x_swept,
-                               const float* __restrict__ u, const float* __restrict__ K,
-                               const float* __restrict__ du, const float* __restrict__ xp,
-                               const float* __restrict__ alphas,
-                               const unsigned char* __restrict__ skip, float* __restrict__ xout,
-                               float* __restrict__ uout, int n_alpha, int n_blocks, int nf,
-                               int integrator, float h, float h_half, float h_sixth) {
-  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= n_alpha * n_blocks) return;
-  const int a = lane / n_blocks;
-  const int b = lane - a * n_blocks;
+template <int INTEG>
+__global__ void __launch_bounds__(KG_THREADS)
+rollout_kernel(const float* __restrict__ cc_g, const float* __restrict__ x_swept,
+               const float* __restrict__ u, const float* __restrict__ K,
+               const float* __restrict__ du, const float* __restrict__ xp,
+               const float* __restrict__ alphas, const unsigned char* __restrict__ skip,
+               float* __restrict__ xout, float* __restrict__ uout, int n_alpha, int n_blocks,
+               int nf, float h, float h_half, float h_sixth) {
+  extern __shared__ float smem[];
+  float* cc = smem;                            // KC_SIZE
+  float* ws = cc + KC_SIZE;                    // KG_FIELDS x 32
+  float* sK = ws + KG_FIELDS * KG_LANES;       // nf x 7 x 14
+  float* su = sK + nf * KUKA_NJ * RO_NS;       // nf x 7
+  float* sdu = su + nf * KUKA_NJ;              // nf x 7
+  float* sxp = sdu + nf * KUKA_NJ;             // nf x 14
+  unsigned char* sskip = reinterpret_cast<unsigned char*>(sxp + nf * RO_NS);  // nf
+
+  const int lane = threadIdx.x & (KG_LANES - 1), w = threadIdx.x >> 5;
+  const int b = blockIdx.x;
+  const int a = blockIdx.y * KG_LANES + lane;
+  const bool valid = a < n_alpha;
+  const int ac = valid ? a : n_alpha - 1;      // spare lanes repeat the last alpha, store nothing
   const int N = n_blocks * nf;
-  const float alpha = alphas[a];
+  const size_t k0 = (size_t)b * nf;
 
-  float xs[RO_NS];
-  const float* x0 = x_swept + ((size_t)a * N + (size_t)b * nf) * RO_NS;
-#pragma unroll
-  for (int i = 0; i < RO_NS; ++i) xs[i] = x0[i];
+  for (int i = threadIdx.x; i < KC_SIZE; i += KG_THREADS) cc[i] = cc_g[i];
+  for (int i = threadIdx.x; i < nf * KUKA_NJ * RO_NS; i += KG_THREADS)
+    sK[i] = K[k0 * KUKA_NJ * RO_NS + i];
+  for (int i = threadIdx.x; i < nf * KUKA_NJ; i += KG_THREADS) {
+    su[i] = u[k0 * KUKA_NJ + i];
+    sdu[i] = du[k0 * KUKA_NJ + i];
+  }
+  for (int i = threadIdx.x; i < nf * RO_NS; i += KG_THREADS) sxp[i] = xp[k0 * RO_NS + i];
+  for (int i = threadIdx.x; i < nf; i += KG_THREADS) sskip[i] = skip[k0 + i];
 
-  for (int t = 0; t < nf; ++t) {
-    const int k = b * nf + t;
-    const bool sk = skip[k] != 0;
-    float dx[RO_NS], un[KUKA_NJ];
+  KgCol<float> col{ws + lane};
+  const float alpha = alphas[ac];
+  float xq = 0.f, xv = 0.f;                    // this warp's two state elements (w < 7)
+  if (w < KUKA_NJ) {
+    const float* x0 = x_swept + ((size_t)ac * N + k0) * RO_NS;
+    xq = x0[w];
+    xv = x0[KUKA_NJ + w];
+    col[KG_X + w] = xq;
+    col[KG_X + KUKA_NJ + w] = xv;
+  }
+  __syncthreads();
+
+  float* xo = xout + (((size_t)ac * n_blocks + b) * nf) * RO_NS;
+  float* uo = uout + (((size_t)ac * n_blocks + b) * nf) * KUKA_NJ;
+  for (int t = 0; t < nf; ++t, xo += RO_NS, uo += KUKA_NJ) {
+    const bool sk = sskip[t] != 0;             // the same for the whole block
+    if (w < KUKA_NJ) {
+      float un = su[t * KUKA_NJ + w];
+      if (!sk) {
+        const float* Kr = sK + (t * KUKA_NJ + w) * RO_NS;
+        const float* xpt = sxp + t * RO_NS;
+        float fb = Kr[0] * (col[KG_X] - xpt[0]);
 #pragma unroll
-    for (int j = 0; j < RO_NS; ++j) dx[j] = xs[j] - xp[k * RO_NS + j];
-#pragma unroll
-    for (int i = 0; i < KUKA_NJ; ++i) {
-      const float* Kr = K + ((size_t)k * KUKA_NJ + i) * RO_NS;
-      float fb = Kr[0] * dx[0];
-#pragma unroll
-      for (int j = 1; j < RO_NS; ++j) fb = fb + Kr[j] * dx[j];
-      const float unom = u[k * KUKA_NJ + i];
-      un[i] = sk ? unom : (unom - alpha * du[k * KUKA_NJ + i]) - fb;
+        for (int j = 1; j < RO_NS; ++j) fb = fb + Kr[j] * (col[KG_X + j] - xpt[j]);
+        un = (un - alpha * sdu[t * KUKA_NJ + w]) - fb;
+        col[KG_TAU + w] = un;
+        kg_trig(col, w);
+      }
+      if (valid) uo[w] = un;
     }
-    float xn[RO_NS];
-    kuka_step(cc, integrator, h, h_half, h_sixth, xs, un, xn);
-    float* xo = xout + ((size_t)lane * nf + t) * RO_NS;
-    float* uo = uout + ((size_t)lane * nf + t) * KUKA_NJ;
-#pragma unroll
-    for (int i = 0; i < RO_NS; ++i) {
-      xs[i] = sk ? xs[i] : xn[i];
-      xo[i] = xs[i];
+    if (sk) {                                  // x is held: nothing to evaluate
+      if (valid && w < KUKA_NJ) { xo[w] = xq; xo[KUKA_NJ + w] = xv; }
+      continue;
     }
-#pragma unroll
-    for (int i = 0; i < KUKA_NJ; ++i) uo[i] = un[i];
+    __syncthreads();
+    kuka_qdd_group_after_trig(cc, col, w);
+    __syncthreads();
+    // the integrator (ops/integrators.py make_step, formula for formula) on
+    // this warp's elements: xdot = [qd; qdd]
+    if (INTEG == 1) {
+      if (w < KUKA_NJ) {
+        const float qdd = col[KG_QDD + w];
+        xq = xq + h * xv;
+        xv = xv + h * qdd;
+      }
+    } else {
+      float k1q = 0.f, k1v = 0.f, k2q = 0.f, k2v = 0.f;
+      if (w < KUKA_NJ) {
+        k1q = xv;
+        k1v = col[KG_QDD + w];
+        col[KG_X + w] = xq + h_half * k1q;
+        col[KG_X + KUKA_NJ + w] = xv + h_half * k1v;
+      }
+      __syncthreads();
+      kuka_qdd_group(cc, col, w);
+      __syncthreads();
+      if (w < KUKA_NJ) {
+        k2q = col[KG_X + KUKA_NJ + w];
+        k2v = col[KG_QDD + w];
+      }
+      if (INTEG == 2) {
+        if (w < KUKA_NJ) {
+          xq = xq + h * k2q;
+          xv = xv + h * k2v;
+        }
+      } else {
+        if (w < KUKA_NJ) {
+          col[KG_X + w] = xq + h * (2.0f * k2q - k1q);
+          col[KG_X + KUKA_NJ + w] = xv + h * (2.0f * k2v - k1v);
+        }
+        __syncthreads();
+        kuka_qdd_group(cc, col, w);
+        __syncthreads();
+        if (w < KUKA_NJ) {
+          const float k3q = col[KG_X + KUKA_NJ + w];
+          const float k3v = col[KG_QDD + w];
+          xq = xq + h_sixth * ((k1q + 4.0f * k2q) + k3q);
+          xv = xv + h_sixth * ((k1v + 4.0f * k2v) + k3v);
+        }
+      }
+    }
+    if (w < KUKA_NJ) {
+      col[KG_X + w] = xq;
+      col[KG_X + KUKA_NJ + w] = xv;
+      if (valid) { xo[w] = xq; xo[KUKA_NJ + w] = xv; }
+    }
+    __syncthreads();
   }
 }
 
 // x_swept (A, N, 14), u (N, 7), K (N, 7, 14), du (N, 7), xp (N, 14),
 // alphas (A), skip (M, Nf) bytes -> xout (A, M, Nf, 14), uout (A, M, Nf, 7).
 // h, h_half, h_sixth: dt, 0.5*dt and dt/6, rounded to float by the caller.
+// A block stages Nf steps of inputs: cudaErrorInvalidValue where they do not
+// fit its shared memory (Nf > 418).
 extern "C" int pddp_rollout(const float* consts, const float* x_swept, const float* u,
                             const float* K, const float* du, const float* xp,
                             const float* alphas, const unsigned char* skip, float* xout,
                             float* uout, int n_alpha, int n_blocks, int nf, int integrator,
                             float h, float h_half, float h_sixth, void* stream) {
-  const int lanes = n_alpha * n_blocks;
-  if (lanes <= 0 || nf <= 0) return 0;
-  const int threads = 32;
-  const int blocks = (lanes + threads - 1) / threads;
-  rollout_kernel<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
-      consts, x_swept, u, K, du, xp, alphas, skip, xout, uout, n_alpha, n_blocks, nf, integrator,
-      h, h_half, h_sixth);
+  if (n_alpha <= 0 || n_blocks <= 0 || nf <= 0) return 0;
+  if (integrator < 1 || integrator > 3) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t bytes =
+      sizeof(float) * (KC_SIZE + KG_FIELDS * KG_LANES + (size_t)nf * RO_STEP_FLOATS) + nf;
+  if (bytes > RO_SMEM_LIMIT) return static_cast<int>(cudaErrorInvalidValue);
+  auto kern = integrator == 1 ? rollout_kernel<1>
+                              : (integrator == 2 ? rollout_kernel<2> : rollout_kernel<3>);
+  if (bytes > 48 * 1024) {
+    cudaError_t st = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                          static_cast<int>(bytes));
+    if (st != cudaSuccess) return static_cast<int>(st);
+  }
+  const dim3 grid(n_blocks, (n_alpha + KG_LANES - 1) / KG_LANES);
+  kern<<<grid, KG_THREADS, bytes, static_cast<cudaStream_t>(stream)>>>(
+      consts, x_swept, u, K, du, xp, alphas, skip, xout, uout, n_alpha, n_blocks, nf, h, h_half,
+      h_sixth);
   return static_cast<int>(cudaGetLastError());
 }

@@ -21,8 +21,7 @@
 // Every intermediate state is written: xs (B, T, 14).
 //
 // Design: one thread per sample; the state stays in registers across the T
-// steps and each step is kuka_step (kuka_step.cuh), the rollout kernel's
-// step.  The kernel is instantiated per integrator, so the Euler chain holds
+// steps and each step is kuka_step (kuka_step.cuh).  The kernel is instantiated per integrator, so the Euler chain holds
 // one copy of the dynamics, not three (fewer registers spilled).  Per step
 // the thread reads 28 bytes of control (mode a) or ~0.6 KB of plan (mode b)
 // and writes 56 bytes of state.

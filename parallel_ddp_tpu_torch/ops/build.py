@@ -4,8 +4,9 @@ The kernels are CUDA C++ for `sm_90a` with a plain C interface, compiled by
 `nvcc` (one process per source, all started together) and linked into one
 shared library loaded with `ctypes` (no PyTorch headers, so a build takes
 seconds, not minutes).  The library goes into
-`build/torch_kernels/<hash of the sources and flags>/` at the root of the
-checkout, so a changed source rebuilds and an unchanged one loads at once.
+`build/torch_kernels/<hash of every file under csrc/ and the flags>/` at the
+root of the checkout, so a changed source or header rebuilds and an unchanged
+tree loads at once.
 
 Nothing here runs at import time: `library()` builds on first use.
 """
@@ -25,8 +26,7 @@ import time
 import torch
 
 CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
-SOURCES = ("rbd_jac.cu", "rollout.cu", "riccati.cu", "qdd.cu", "sim_chain.cu")
-HEADERS = ("kuka_soa.cuh", "kuka_step.cuh")
+SOURCES = ("common.cu", "rbd_jac.cu", "rollout.cu", "riccati.cu", "qdd.cu", "sim_chain.cu")
 BUILD_ROOT = pathlib.Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -38,8 +38,8 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
-    # consts, x, u, jac, qdd, batch, stream
-    "pddp_rbd_jac": (_P, _P, _P, _P, _P, _I, _P),
+    # consts, x, u, jac, qdd, ab, batch, dt, stream
+    "pddp_rbd_jac": (_P, _P, _P, _P, _P, _P, _I, _F, _P),
     # consts, x_swept, u, K, du, xp, alphas, skip, xout, uout,
     # n_alpha, n_blocks, nf, integrator, h, h_half, h_sixth, stream
     "pddp_rollout": (_P,) * 10 + (_I, _I, _I, _I, _F, _F, _F, _P),
@@ -57,11 +57,20 @@ _SIGNATURES = {
 _RAW_STREAM = getattr(torch._C, "_cuda_getCurrentRawStream", None)
 
 
+def digest_files() -> list[pathlib.Path]:
+    """Every file under `csrc/`: what the build's hash covers, so a header a
+    source includes cannot change without a rebuild, listed anywhere or not."""
+    return sorted(p for p in CSRC.rglob("*") if p.is_file())
+
+
 def _digest() -> str:
+    missing = [s for s in SOURCES if not (CSRC / s).is_file()]
+    if missing:
+        raise RuntimeError(f"kernel sources missing from {CSRC}: {missing}")
     h = hashlib.sha256()
-    for name in SOURCES + HEADERS:
-        h.update(name.encode())
-        h.update((CSRC / name).read_bytes())
+    for path in digest_files():
+        h.update(path.relative_to(CSRC).as_posix().encode())
+        h.update(path.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return h.hexdigest()[:16]
 

@@ -19,10 +19,15 @@ whose kernel runs the time loop inside one launch.
     dynamics (`torch.autograd.forward_ad`, the 21 unit tangents as a batch
     dimension), plus the primal;
   * on CUDA tensors, the hand-written kernel `csrc/rbd_jac.cu` (forward mode
-    by dual numbers, one thread per (sample, tangent column)), or it raises.
+    by dual numbers, a group of threads per (sample, tangent column), one in
+    each warp of a thread block), or it raises.
+`kuka_euler_ab(x, u, dt)` returns the Euler step's AB = E + dt [[0 I 0]; [J]]
+(B, 14, 21): on CUDA tensors the same kernel writes it in its epilogue (one
+launch, nothing else); on CPU tensors the composer on the plain Jacobian.
 
-`make_kuka_ab` composes it into AB = [A | B] over the whole time axis — the
-solver's derivative stage on the main path (`Plant.batched_step_jac`).
+`make_kuka_ab` composes the Jacobian into AB = [A | B] over the whole time
+axis — the solver's derivative stage on the main path
+(`Plant.batched_step_jac`).
 """
 
 from __future__ import annotations
@@ -105,23 +110,53 @@ def kuka_jac_qdd_plain(x, u, ee_type: int = 1, gravity: float = 9.81):
     return jac.permute(1, 2, 0), qdd[0]
 
 
-def kuka_jac_qdd_cuda(x, u, ee_type: int = 1, gravity: float = 9.81):
-    """Launch the RBD-Jacobian kernel on CUDA tensors x (B, 14), u (B, 7)."""
+def _launch_rbd_jac(x, u, ee_type, gravity, jac, qdd, ab, dt):
+    """Check the inputs and launch the RBD-Jacobian kernel into the outputs
+    given (None: that output is left out); counts the launch."""
     B = x.shape[0]
     build.check_input("x", x, (B, _NX))
     build.check_input("u", u, (B, N_JOINTS))
     if u.device != x.device:
         raise ValueError(f"x on {x.device} but u on {u.device}")
+    cc = consts_tensor(ee_type, float(gravity), x.device)
+    ptr = lambda t: None if t is None else t.data_ptr()
+    build.launch("pddp_rbd_jac", x.device, cc.data_ptr(), x.data_ptr(), u.data_ptr(),
+                 ptr(jac), ptr(qdd), ptr(ab), B, dt)
+    kuka_jac_qdd_cuda.launches += 1
+
+
+def kuka_jac_qdd_cuda(x, u, ee_type: int = 1, gravity: float = 9.81):
+    """Launch the RBD-Jacobian kernel on CUDA tensors x (B, 14), u (B, 7)."""
+    B = x.shape[0]
     jac = torch.empty((B, N_JOINTS, _NIN), device=x.device, dtype=torch.float32)
     qdd = torch.empty((B, N_JOINTS), device=x.device, dtype=torch.float32)
-    cc = consts_tensor(ee_type, float(gravity), x.device)
-    build.launch("pddp_rbd_jac", x.device, cc.data_ptr(), x.data_ptr(), u.data_ptr(),
-                 jac.data_ptr(), qdd.data_ptr(), B)
-    kuka_jac_qdd_cuda.launches += 1
+    _launch_rbd_jac(x, u, ee_type, gravity, jac, qdd, None, 0.0)
     return jac, qdd
 
 
-kuka_jac_qdd_cuda.launches = 0
+kuka_jac_qdd_cuda.launches = 0     # launches of the kernel, by either wrapper
+
+
+def kuka_euler_ab_cuda(x, u, dt: float, ee_type: int = 1, gravity: float = 9.81):
+    """Launch the RBD-Jacobian kernel on CUDA tensors x (B, 14), u (B, 7) for
+    its Euler epilogue alone: AB = E + dt [[0 I 0]; [J]] (B, 14, 21)."""
+    ab = torch.empty((x.shape[0], _NX, _NIN), device=x.device, dtype=torch.float32)
+    _launch_rbd_jac(x, u, ee_type, gravity, None, None, ab, dt)
+    return ab
+
+
+def kuka_euler_ab_plain(x, u, dt: float, ee_type: int = 1, gravity: float = 9.81):
+    """Plain version of `kuka_euler_ab_cuda`: the composer's E + dt * F on the
+    plain Jacobian."""
+    return _kuka_composed_ab(ee_type, float(gravity), 1, dt)(x, u)
+
+
+def kuka_euler_ab(x, u, dt: float, ee_type: int = 1, gravity: float = 9.81):
+    """The Euler step's AB (B, 14, 21): the plain version on CPU tensors, the
+    CUDA kernel's epilogue on CUDA tensors."""
+    if x.device.type == "cpu" and u.device.type == "cpu":
+        return kuka_euler_ab_plain(x, u, dt, ee_type, gravity)
+    return kuka_euler_ab_cuda(x.contiguous(), u.contiguous(), dt, ee_type, gravity)
 
 
 def kuka_jac_qdd(x, u, ee_type: int = 1, gravity: float = 9.81):
@@ -179,11 +214,10 @@ def make_ab_composer(fdyn, fjac, integrator: int, dt: float, ns: int, nj: int,
     return ab
 
 
-def make_kuka_ab(ee_type: int, gravity: float, integrator: int, dt: float):
-    """Batched discrete-dynamics Jacobian AB = [A | B] through the RBD-Jacobian
-    op: ab(x (B, 14), u (B, 7)) -> (B, 14, 21), one op call per Butcher stage
-    over the whole batch, chained by `make_ab_composer` (the solver's
-    derivative stage, integratorGradientKern)."""
+@functools.lru_cache(maxsize=16)
+def _kuka_composed_ab(ee_type: int, gravity: float, integrator: int, dt: float):
+    """AB through the RBD-Jacobian op (`kuka_jac_qdd`), one op call per
+    Butcher stage over the whole batch, chained by `make_ab_composer`."""
     ns, nj = _NX, N_JOINTS
 
     def _lift_jac(J):
@@ -202,3 +236,18 @@ def make_kuka_ab(ee_type: int, gravity: float, integrator: int, dt: float):
     # fdyn is unused when fboth is given: every stage needing the primal gets
     # it from the Jacobian kernel
     return make_ab_composer(None, fjac, integrator, dt, ns, nj, fboth=fboth)
+
+
+def make_kuka_ab(ee_type: int, gravity: float, integrator: int, dt: float):
+    """Batched discrete-dynamics Jacobian AB = [A | B]: ab(x (B, 14), u (B, 7))
+    -> (B, 14, 21) (the solver's derivative stage, integratorGradientKern).
+    Euler: `kuka_euler_ab` (on the card one kernel launch, the AB written in
+    its epilogue).  Midpoint and RK3: the Jacobian op once per Butcher stage,
+    chained by `make_ab_composer`."""
+    if integrator != 1:
+        return _kuka_composed_ab(ee_type, gravity, integrator, dt)
+
+    def ab(x, u):
+        return kuka_euler_ab(x, u, dt, ee_type, gravity)
+
+    return ab

@@ -10,8 +10,9 @@ Twin of `parallel_ddp_tpu/ops/pallas_rollout.py`.  The factory
 the whole forward simulation of every (alpha, shooting block) lane:
   * on CPU tensors, the plain version `rollout_plain` — the loop of
     `parallel/forward.py::make_sim_block`, batched over the lanes;
-  * on CUDA tensors, the kernel `csrc/rollout.cu` (one thread per lane, a
-    serial loop over the block's steps), or it raises.
+  * on CUDA tensors, the kernel `csrc/rollout.cu` (a group of threads per
+    lane, one in each warp of a thread block that takes one shooting block
+    and up to 32 alphas; a serial loop over the block's steps), or it raises.
 
 `skip_mask` (M, Nf) marks steps that are not simulated; it defaults to the
 horizon's last step k = N-1 (fpHelpers.cuh:235).
@@ -31,6 +32,10 @@ from parallel_ddp_tpu_torch.ops.integrators import make_step
 
 NJ = 7
 NS = 14
+# A thread block of the kernel stages the inputs of its shooting block's Nf
+# steps in shared memory beside the dynamics' workspace: the most it can take
+# (the layout of csrc/rollout.cu in 227 KB)
+MAX_BLOCK_STEPS = 418
 
 
 def rollout_plain(step_fn, x0, u_b, K_b, du_b, xp_b, alpha, skip):
@@ -87,6 +92,9 @@ def kuka_rollout_cuda(x_swept, u, K, du, xp, alphas, skip, *, ee_type: int,
     if N % M:
         raise ValueError(f"horizon {N} not divisible into {M} shooting blocks")
     nf = N // M
+    if nf > MAX_BLOCK_STEPS:
+        raise ValueError(f"{nf} steps a shooting block: the rollout kernel stages at most "
+                         f"{MAX_BLOCK_STEPS} in a thread block's shared memory (use more blocks)")
     build.check_input("x_swept", x_swept, (A, N, NS))
     build.check_input("u", u, (N, NJ))
     build.check_input("K", K, (N, NJ, NS))
@@ -128,9 +136,10 @@ def make_kuka_fused_rollout(ee_type: int, gravity: float, integrator: int,
     default_skip = {}
 
     def _default_skip(device):
-        if device not in default_skip:          # only k = N-1 is skipped
+        # only k = N-1 is skipped; cached as the kernel takes it (uint8)
+        if device not in default_skip:
             k = torch.arange(N, device=device).reshape(M, nf)
-            default_skip[device] = k == N - 1
+            default_skip[device] = (k == N - 1).to(torch.uint8).contiguous()
         return default_skip[device]
 
     def fused(x_swept, u, K, du, xp, alphas, skip_mask=None):
@@ -138,14 +147,14 @@ def make_kuka_fused_rollout(ee_type: int, gravity: float, integrator: int,
         if A != num_alpha:
             raise ValueError(f"expected {num_alpha} alphas, got {A}")
         dev = x_swept.device
-        skip = _default_skip(dev) if skip_mask is None else skip_mask.to(dev, torch.bool)
+        skip = (_default_skip(dev) if skip_mask is None
+                else (skip_mask != 0).to(dev, torch.uint8).contiguous())
         kw = dict(ee_type=ee_type, gravity=gravity, integrator=integrator, dt=dt,
                   m_blocks=M)
         if dev.type == "cpu":
             return kuka_rollout_plain(x_swept, u, K, du, xp, alphas, skip, **kw)
         return kuka_rollout_cuda(
             x_swept.contiguous(), u.contiguous(), K.contiguous(),
-            du.contiguous(), xp.contiguous(), alphas.contiguous(),
-            skip.to(torch.uint8).contiguous(), **kw)
+            du.contiguous(), xp.contiguous(), alphas.contiguous(), skip, **kw)
 
     return fused

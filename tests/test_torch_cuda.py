@@ -76,6 +76,99 @@ def test_rollout_kernel(dev, integrator):
         torch.testing.assert_close(g.cpu(), r, rtol=1e-4, atol=1e-5)
 
 
+@pytest.mark.parametrize("batch", [1, 63, 1000])
+def test_rbd_jac_group_kernel_batches(dev, batch):
+    """The thread-group Jacobian kernel at one sample (a block of one group),
+    the main path's 63 and 1,000 (657 blocks, the last one ragged)."""
+    rng = np.random.default_rng(batch)
+    x, u = _f32(rng, (batch, 14), 0.5, dev), _f32(rng, (batch, 7), 2.0, dev)
+    jac, qdd = cuda_rbd.kuka_jac_qdd(x, u, 1, 0.0)
+    ref_jac, ref_qdd = cuda_rbd.kuka_jac_qdd_plain(x, u, 1, 0.0)
+    assert jac.shape == (batch, 7, 21) and qdd.shape == (batch, 7)
+    torch.testing.assert_close(jac, ref_jac, rtol=1e-3, atol=1e-4 * float(ref_jac.abs().max()))
+    torch.testing.assert_close(qdd, ref_qdd, rtol=1e-3, atol=1e-4 * float(ref_qdd.abs().max()))
+
+
+@pytest.mark.parametrize("batch", [1, 63])
+def test_euler_ab_epilogue_is_the_composer_bit_for_bit(dev, batch):
+    """The AB the kernel writes in its epilogue equals E + dt * F, the
+    composer's two tensor operations, on the J of the same kernel: no bit
+    differs; and one launch makes it."""
+    rng = np.random.default_rng(7 + batch)
+    dt = 0.5 / 63
+    x, u = _f32(rng, (batch, 14), 0.5, dev), _f32(rng, (batch, 7), 2.0, dev)
+    before = cuda_rbd.kuka_jac_qdd_cuda.launches
+    ab = cuda_rbd.make_kuka_ab(1, 0.0, 1, dt)(x, u)
+    assert cuda_rbd.kuka_jac_qdd_cuda.launches == before + 1
+    assert ab.shape == (batch, 14, 21)
+    jac, _ = cuda_rbd.kuka_jac_qdd_cuda(x, u, 1, 0.0)
+
+    def lifted(xs, us):
+        top = torch.zeros((batch, 7, 21), device=dev)
+        top[:, :, 7:14] = torch.eye(7, device=dev)
+        return torch.cat([top, jac], dim=1)
+
+    composed = cuda_rbd.make_ab_composer(None, lifted, 1, dt, 14, 7)(x, u)
+    assert torch.equal(ab, composed)
+    # Midpoint and RK3 still go through the composer, one launch a stage
+    before = cuda_rbd.kuka_jac_qdd_cuda.launches
+    ab3 = cuda_rbd.make_kuka_ab(1, 0.0, 3, dt)(x, u)
+    assert cuda_rbd.kuka_jac_qdd_cuda.launches == before + 3 and ab3.shape == (batch, 14, 21)
+
+
+def _rollout_inputs(rng, A, M, nf, dev):
+    N = M * nf
+    alphas = torch.as_tensor((0.5 ** np.arange(A)).astype(np.float32), device=dev)
+    return (_f32(rng, (A, N, 14), 0.3, dev), _f32(rng, (N, 7), 1.0, dev),
+            _f32(rng, (N, 7, 14), 0.05, dev), _f32(rng, (N, 7), 0.5, dev),
+            _f32(rng, (N, 14), 0.3, dev), alphas)
+
+
+@pytest.mark.parametrize("integrator", [1, 3])
+@pytest.mark.parametrize("nf", [16, 7])
+@pytest.mark.parametrize("A,M", [(16, 4), (1, 1), (5, 3), (40, 2)])
+def test_rollout_group_kernel_lanes(dev, A, M, nf, integrator):
+    """The thread-group rollout kernel at the main path's 16 x 4 lanes, one
+    lane, ragged 5 x 3 and 40 alphas (two chunks of lanes a shooting block),
+    with the default mask and with one that skips an interior step too."""
+    rng = np.random.default_rng(100 * A + 10 * M + nf + integrator)
+    args = _rollout_inputs(rng, A, M, nf, dev)
+    fused = cuda_rollout.make_kuka_fused_rollout(1, 0.0, integrator, 0.5 / 63, M * nf, M, A)
+    mask = torch.zeros((M, nf), dtype=torch.bool)
+    mask[-1, -1] = True
+    mask[0, nf // 2] = True
+    before = cuda_rollout.kuka_rollout_cuda.launches
+    for skip in (None, mask):
+        got = fused(*args, skip_mask=None if skip is None else skip.to(dev))
+        ref = fused(*[a.cpu() for a in args], skip_mask=skip)
+        assert got[0].shape == (A, M, nf, 14) and got[1].shape == (A, M, nf, 7)
+        for g, r in zip(got, ref):
+            torch.testing.assert_close(g.cpu(), r, rtol=1e-4, atol=1e-5 * max(float(r.abs().max()), 1.0))
+    assert cuda_rollout.kuka_rollout_cuda.launches == before + 2
+
+
+@pytest.mark.parametrize("integrator", [1, 2, 3])
+def test_rollout_without_feedback_is_the_chain_kernel(dev, integrator):
+    """With K = 0 and du = 0 a rollout lane is an open-loop chain: the
+    thread-group kernel and the one-thread chain kernel run the same dynamics
+    and agree to rounding (where nvcc fuses a multiply-add)."""
+    rng = np.random.default_rng(integrator)
+    A, M, nf = 3, 2, 9
+    x_sw, u, K, du, xp, alphas = _rollout_inputs(rng, A, M, nf, dev)
+    dt = 0.5 / 63
+    fused = cuda_rollout.make_kuka_fused_rollout(1, 0.0, integrator, dt, M * nf, M, A)
+    none = torch.zeros((M, nf), dtype=torch.bool, device=dev)
+    x_roll, u_roll = fused(x_sw, u, torch.zeros_like(K), torch.zeros_like(du), xp, alphas,
+                           skip_mask=none)
+    chain = cuda_sim_chain.make_kuka_sim_chain(1, 0.0, integrator, dt)
+    x0 = x_sw.reshape(A, M, nf, 14)[:, :, 0]
+    u_lanes = u.reshape(M, nf, 7).expand(A, M, nf, 7).contiguous()
+    x_chain = chain.open_loop(x0, u_lanes)
+    assert torch.equal(u_roll, u_lanes)
+    torch.testing.assert_close(x_roll, x_chain, rtol=1e-5,
+                               atol=2e-6 * max(float(x_chain.abs().max()), 1.0))
+
+
 @pytest.mark.parametrize("integrator,lead,steps", [(1, (), 63), (1, (4,), 16), (2, (2, 3), 5),
                                                    (3, (), 15)])
 def test_sim_chain_open_loop_kernel(dev, integrator, lead, steps):

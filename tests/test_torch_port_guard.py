@@ -8,6 +8,7 @@ interpreter start-up."""
 import ast
 import os
 import pathlib
+import re
 import shutil
 import subprocess
 import sys
@@ -129,6 +130,70 @@ def test_cpu_tensors_stay_on_the_cpu():
     assert all(a.device.type == "cpu" for a in st)
     st2, info = ctrl.step(st, [0.0] * 14, 0.01, goal)       # a list follows the state
     assert all(a.device.type == "cpu" for a in st2) and info.J.device.type == "cpu"
+
+
+CSRC = PORT / "csrc"
+
+
+def _csrc_files():
+    return sorted(p for p in CSRC.rglob("*") if p.suffix in (".cu", ".cuh"))
+
+
+@pytest.mark.parametrize("path", _csrc_files(), ids=lambda p: p.name)
+def test_includes_are_covered_by_the_build_digest(path):
+    """Every `#include "..."` of a kernel source names a file the build's hash
+    covers, so no header can change and leave a stale library behind."""
+    from parallel_ddp_tpu_torch.ops import build
+
+    covered = {p.resolve() for p in build.digest_files()}
+    assert path.resolve() in covered
+    for name in re.findall(r'^\s*#include\s+"([^"]+)"', path.read_text(), flags=re.M):
+        assert (path.parent / name).resolve() in covered, f"{path.name} includes {name}"
+
+
+def test_build_digest_follows_every_file(tmp_path, monkeypatch):
+    """The hash changes with a header no list names, and a listed source that
+    is missing is an error."""
+    from parallel_ddp_tpu_torch.ops import build
+
+    copy = tmp_path / "csrc"
+    shutil.copytree(CSRC, copy)
+    monkeypatch.setattr(build, "CSRC", copy)
+    base = build._digest()
+    assert base == build._digest()
+    (copy / "some_new_header.cuh").write_text("#pragma once\n")
+    with_header = build._digest()
+    assert with_header != base
+    (copy / "some_new_header.cuh").write_text("#pragma once\n#define X 1\n")
+    assert build._digest() not in (base, with_header)
+    (copy / build.SOURCES[0]).unlink()
+    with pytest.raises(RuntimeError, match="missing"):
+        build._digest()
+
+
+def _launch_functions():
+    """(name, argument count) of every `extern "C" int pddp_*(...)` in csrc/."""
+    found = {}
+    for path in _csrc_files():
+        for name, args in re.findall(r'extern\s+"C"\s+int\s+(pddp_\w+)\s*\(([^)]*)\)\s*\{',
+                                     path.read_text()):
+            found[name] = len([a for a in args.split(",") if a.strip()])
+    return found
+
+
+def test_every_launch_function_has_its_signature():
+    """Each launch function of the sources is bound with as many ctypes
+    arguments as it takes, each signature names a function that exists, and
+    the error-string function has a source."""
+    from parallel_ddp_tpu_torch.ops import build
+
+    found = _launch_functions()
+    assert set(found) == set(build._SIGNATURES)
+    for name, count in found.items():
+        assert len(build._SIGNATURES[name]) == count, name
+    assert any("pddp_error_string" in p.read_text() for p in _csrc_files()
+               if p.name in build.SOURCES)
+    assert all((CSRC / s).is_file() for s in build.SOURCES)
 
 
 def _run_smoke(cwd):

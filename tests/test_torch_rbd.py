@@ -9,6 +9,9 @@ against the reference, on the same seeded inputs.
   * the hooked AB equals jacfwd of the port's own integrator step;
   * the forward-dynamics op's plain version vs the reference's Pallas qdd
     kernel (interpret mode) and soa core;
+  * the Euler AB op's plain version equals the composer on the same Jacobian
+    bit for bit and the reference's E + dt F; `make_kuka_ab` on CPU tensors is
+    what it was before the kernel wrote the Euler AB itself;
   * on a tensor that is not on the CPU the ops never fall back to their plain
     versions."""
 
@@ -115,6 +118,67 @@ def test_hooked_ab_matches_step_jacobian(integrator):
     torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-5)
 
 
+def _lifted_plain_jac(x, u, ee_type=1, gravity=0.0):
+    """F = d [qd; qdd] / d [x; u] (B, 14, 21) from the op's plain Jacobian."""
+    J, _ = cuda_rbd.kuka_jac_qdd_plain(x, u, ee_type, gravity)
+    top = torch.zeros((J.shape[0], 7, 21))
+    top[:, :, 7:14] = torch.eye(7)
+    return torch.cat([top, J], dim=1)
+
+
+def _seeded_xu(seed, batch=8):
+    rng = np.random.default_rng(seed)
+    return (rng.normal(0, 0.5, (batch, 14)).astype(np.float32),
+            rng.normal(0, 2.0, (batch, 7)).astype(np.float32))
+
+
+def test_euler_ab_plain_is_the_composer_bit_for_bit():
+    """The plain version of the kernel's Euler output is `make_ab_composer`'s
+    E + dt * F on the same J: no bit differs."""
+    dt = 0.5 / 63
+    x, u = (torch.as_tensor(a) for a in _seeded_xu(20))
+    got = cuda_rbd.kuka_euler_ab(x, u, dt, 1, 0.0)
+    ref = cuda_rbd.make_ab_composer(None, _lifted_plain_jac, 1, dt, 14, 7)(x, u)
+    assert got.shape == (8, 14, 21) and got.dtype == torch.float32
+    assert torch.equal(got, ref)
+    assert torch.equal(cuda_rbd.kuka_euler_ab_plain(x, u, dt, 1, 0.0), ref)
+
+
+def test_euler_ab_matches_reference():
+    """Against the reference's Euler AB at B = 8: E + dt * F with F from
+    jax.jacfwd of its soa dynamics (eager, as above), within 1e-5 of max |AB|
+    (the Jacobians' forward-mode rounding, scaled by dt)."""
+    dt = 0.5 / 63
+    x, u = _seeded_xu(21)
+    ref = RefSoA(1, 0.0)
+    jx, ju = jax.vmap(jax.jacfwd(ref.forward_dynamics, argnums=(0, 1)))(
+        jnp.asarray(x), jnp.asarray(u))
+    F = np.zeros((8, 14, 21), np.float32)
+    F[:, :7, 7:14] = np.eye(7, dtype=np.float32)
+    F[:, 7:, :] = np.concatenate([np.asarray(jx), np.asarray(ju)], axis=-1)
+    E = np.concatenate([np.eye(14, dtype=np.float32), np.zeros((14, 7), np.float32)], axis=1)
+    ref_ab = E + np.float32(dt) * F
+    got = cuda_rbd.kuka_euler_ab(torch.as_tensor(x), torch.as_tensor(u), dt, 1, 0.0).numpy()
+    np.testing.assert_allclose(got, ref_ab, rtol=0, atol=1e-5 * np.abs(ref_ab).max())
+
+
+@pytest.mark.parametrize("integrator", [1, 2, 3])
+def test_make_kuka_ab_unchanged_on_cpu(integrator):
+    """On CPU tensors `make_kuka_ab` is bit for bit the chain it was when the
+    composer built every integrator's AB from the Jacobian op."""
+    dt = 0.5 / 63
+    x, u = (torch.as_tensor(a) for a in _seeded_xu(30 + integrator, batch=5))
+
+    def fboth(xs, us):
+        _, qdd = cuda_rbd.kuka_jac_qdd(xs.contiguous(), us.contiguous(), 1, 0.0)
+        return torch.cat([xs[:, 7:], qdd], dim=1), _lifted_plain_jac(xs, us)
+
+    before = cuda_rbd.make_ab_composer(None, lambda xs, us: fboth(xs, us)[1], integrator, dt,
+                                       14, 7, fboth=fboth)(x, u)
+    got = cuda_rbd.make_kuka_ab(1, 0.0, integrator, dt)(x, u)
+    assert torch.equal(got, before)
+
+
 def test_no_fallback_off_cpu():
     """A tensor that is not on the CPU goes to the kernel path, which refuses
     what it cannot take — it never quietly runs the plain version."""
@@ -124,6 +188,13 @@ def test_no_fallback_off_cpu():
         cuda_rbd.kuka_jac_qdd(x, u)
     with pytest.raises(ValueError, match="CUDA"):
         cuda_rbd.kuka_jac_qdd_cuda(torch.zeros(4, 14), torch.zeros(4, 7))
+    # the Euler AB goes the same way: the kernel path or an error
+    with pytest.raises(ValueError, match="CUDA"):
+        cuda_rbd.kuka_euler_ab(x, u, 0.01)
+    with pytest.raises(ValueError, match="CUDA"):
+        cuda_rbd.make_kuka_ab(1, 0.0, 1, 0.01)(x, u)
+    with pytest.raises(ValueError, match="CUDA"):
+        cuda_rbd.kuka_euler_ab_cuda(torch.zeros(4, 14), torch.zeros(4, 7), 0.01)
     assert cuda_rbd.kuka_jac_qdd_cuda.launches == 0
 
 

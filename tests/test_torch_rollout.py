@@ -72,6 +72,45 @@ def test_skip_mask_and_integrators(integrator):
                     torch.testing.assert_close(x_got[a, b, t], x, rtol=1e-5, atol=1e-5)
 
 
+@pytest.mark.parametrize("integrator", [1, 3])
+def test_default_and_given_skip_mask_match_reference_kernel(integrator):
+    """The default skip mask (cached per device in the form the kernel takes)
+    and the same mask passed by the caller give one result, call after call,
+    and it is the reference's fused rollout (interpret mode), Euler and RK3."""
+    args = _inputs(40 + integrator)
+    ref = ref_fused_rollout(1, 9.81, integrator, DT, N, M, A, interpret=True)
+    x_ref, u_ref = ref(*(jnp.asarray(a) for a in args))
+    fused = make_kuka_fused_rollout(1, 9.81, integrator, DT, N, M, A)
+    targs = [torch.as_tensor(a) for a in args]
+    first = fused(*targs)
+    again = fused(*targs)                      # the cached mask
+    last_only = torch.zeros((M, N // M), dtype=torch.bool)
+    last_only[-1, -1] = True
+    for mask in (last_only, last_only.to(torch.uint8), last_only.to(torch.int64)):
+        given = fused(*targs, skip_mask=mask)
+        for a, b, c in zip(first, again, given):
+            assert torch.equal(a, b) and torch.equal(a, c)
+    np.testing.assert_allclose(first[1].numpy(), np.asarray(u_ref), rtol=2e-5, atol=2e-5)
+    np.testing.assert_allclose(first[0].numpy(), np.asarray(x_ref), rtol=2e-5, atol=2e-5)
+
+
+def test_kernel_path_refuses_without_a_card():
+    """The kernel's wrapper on tensors that are not on a CUDA device raises,
+    as it does for a shooting block longer than a thread block can stage."""
+    x_sw, u, K, du, xp, al = (torch.as_tensor(a) for a in _inputs())
+    skip = torch.zeros((M, N // M), dtype=torch.uint8)
+    kw = dict(ee_type=1, gravity=9.81, integrator=1, dt=DT, m_blocks=M)
+    with pytest.raises(ValueError, match="CUDA"):
+        cuda_rollout.kuka_rollout_cuda(x_sw, u, K, du, xp, al, skip, **kw)
+    n_long = cuda_rollout.MAX_BLOCK_STEPS + 1
+    long = [torch.zeros((1, n_long, 14)), torch.zeros((n_long, 7)), torch.zeros((n_long, 7, 14)),
+            torch.zeros((n_long, 7)), torch.zeros((n_long, 14)), torch.zeros(1),
+            torch.zeros((1, n_long), dtype=torch.uint8)]
+    with pytest.raises(ValueError, match="steps a shooting block"):
+        cuda_rollout.kuka_rollout_cuda(*long, **dict(kw, m_blocks=1))
+    assert cuda_rollout.kuka_rollout_cuda.launches == 0
+
+
 def test_factory_refuses_bad_shapes():
     with pytest.raises(ValueError):
         make_kuka_fused_rollout(1, 9.81, 1, DT, 10, 4, 16)        # N % M != 0
