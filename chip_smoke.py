@@ -24,34 +24,46 @@ Phases (each prints one line; any failure exits non-zero):
                from the kernels' own time (CUDA-graph replay).
   4. solve   — the WAFR Kuka iiwa-14 end-effector solve (N=64, 4+4 blocks,
                16 alphas, Euler, gravity-compensated) with the fused Riccati
-               sweep, cold then three warm re-solves along the figure-8 goal;
-               every kernel must have launched during it; the cold solve is
-               repeated on CPU tensors (plain versions) and the two traces
-               must agree.
-  5. timing  — median of 20 warm 6-iteration re-solves (the first warm
-               re-solve, repeated; CUDA events).
+               sweep, cold then three warm re-solves along the figure-8 goal,
+               each one replay of a CUDA graph (`parallel_ddp_tpu_torch/
+               graphs.py`: the iterations and the rho retry are WHILE nodes);
+               every kernel must have launched during them (counted on the
+               device, under replay); the cold and the first warm solve are
+               repeated on CPU tensors (plain versions, host loops) and the
+               traces must agree.
+  5. timing  — median of 20 replayed warm 6-iteration re-solves (the first
+               warm re-solve, repeated; CUDA events); the solver's host reads
+               and torch's sync-debug count of one solve must both be 0.
   6. fig8    — the figure-8 closed loop of benchmarks/fig8.py through the
-               port's MPC controller and device loop: cold start, a 4 s
-               settle on the path's start, then the 10 s track at 100 Hz
-               (6-iteration warm solves, 1 kHz Euler plant); each of its
-               kernels (all but the single-evaluation forward dynamics) must
-               have launched during it; the average EE error must be
-               finite and at most the original CUDA implementation's
-               0.0878 m.  Three control steps from the settled state are
+               port's MPC controller and device loop, one graph replay per
+               control step: cold start (one replay of the 50-iteration
+               solve's graph), a 4 s settle on the path's start, then the
+               whole 10 s track at 100 Hz (6-iteration warm solves, 1 kHz
+               Euler plant); each of its kernels (all but the single-
+               evaluation forward dynamics) must have launched during it;
+               the average EE error must be finite and at most the original
+               CUDA implementation's 0.0878 m; host reads per control step
+               must be 0.  Three control steps from the settled state are
                repeated on CPU tensors (plain versions) and must agree with
-               the GPU's, as must three steps of the block re-rollout
-               warm start (full_rollout=False), a path of its own with its
-               own launch counts, on which every kernel must have launched
-               (its boundary defects are single forward-dynamics
-               evaluations); the chain's trajectory-runner
-               mode is held against its plain version from the settled
-               state; the stages of one control step are timed (derivative
-               stage, backward pass, forward pass and their pieces), the warm
-               start and the substeps also the way they ran before the chain
-               kernel (one forward-dynamics launch per step).
-  7. profile — one torch.profiler run each of a warm solve and a fig-8
-               control step: kernel launches, stream syncs, device time and
-               the card's busy share.
+               the GPU's (torch's sync-debug count of the GPU's: 0), as must
+               three steps of the block re-rollout warm start
+               (full_rollout=False), a path of its own with its own launch
+               counts, on which every kernel must have launched (its
+               boundary defects are single forward-dynamics evaluations);
+               the chain's trajectory-runner mode is held against its plain
+               version from the settled state; the stages of one control
+               step are timed eagerly (derivative stage, backward pass,
+               forward pass and their pieces), the warm start and the
+               substeps also the way they ran before the chain kernel (one
+               forward-dynamics launch per step).
+  7. profile — back-to-back replayed warm solves and fig-8 control steps:
+               the stream's time a call (CUDA events) against the host's, and
+               the mean time of a graph node; then one torch.profiler run of
+               each: kernels run on the card, graph launches, stream syncs,
+               device time and busy share as the profiler sees them.
+  8. graphs  — every graph captured: seconds to capture and instantiate,
+               nodes (WHILE bodies included) and the bytes its memory pool
+               holds.
 Then one JSON line with every kernel's numbers, the card line, and last
 {"ok": true, "device": {...}}.  Takes 2 to 3 minutes on an H100.
 `python3 chip_smoke.py --kernels-only` stops after phase 3 and prints no
@@ -113,7 +125,7 @@ FIG8_SIM_HZ = 1000.0
 FIG8_SETTLE_S = 4.0
 FIG8_TRACK_S = 10.0
 FIG8_CHUNK = 100          # control steps between synced, timed reads
-FIG8_BUDGET_S = 600.0     # the track is shortened to keep the phase within this
+FIG8_BUDGET_S = 600.0     # the track is shortened (and says so) past this
 FIG8_BAR_M = 0.0878       # the original CUDA implementation's average EE error
 # GPU vs CPU over 3 control steps from the settled state: the same accept
 # decisions, J within SOLVE_RTOL, the EE error within this many metres
@@ -196,8 +208,10 @@ def host_and_kernel_us(fn, enqueues, graph_launches=20, replays=10):
         fn()
     host_us = (time.perf_counter() - t0) / enqueues * 1e6
     torch.cuda.synchronize()
+    from parallel_ddp_tpu_torch.ops import build
+
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with build.uncounted(), torch.cuda.graph(graph):    # no counting node beside the kernel
         for _ in range(graph_launches):
             fn()
     graph.replay()
@@ -265,8 +279,10 @@ def count_syncs(torch, fn):
 
 
 def profile_line(torch, label, fn):
-    """One torch.profiler run of fn: kernel launches, device time, wall
-    time and the card's busy share, printed on one line."""
+    """One torch.profiler run of fn: kernels run on the card, kernel and graph
+    launches from the host, device time, wall time and the card's busy
+    share, printed on one line."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -278,12 +294,43 @@ def profile_line(torch, label, fn):
         wall_ms = (time.perf_counter() - t0) * 1e3
     events = prof.key_averages()
     launches = sum(e.count for e in events if "LaunchKernel" in e.key)
+    graph_launches = sum(e.count for e in events if e.key == "cudaGraphLaunch")
+    on_device = sum(e.count for e in events if e.device_type == DeviceType.CUDA)
     syncs = sum(e.count for e in events if e.key == "cudaStreamSynchronize")
     device_ms = sum(getattr(e, "self_device_time_total", 0) for e in events) / 1e3
     busy = f"{device_ms / wall_ms:.3f}" if device_ms > 0 else "not measured"
-    print(f"profile: {label}: {launches} kernel launches, {syncs} stream syncs, device "
-          f"{device_ms:.3f} ms in {wall_ms:.3f} ms of profiled wall time (busy {busy})",
-          flush=True)
+    print(f"profile: {label}: {on_device} kernels, copies and sets run on the card; "
+          f"{graph_launches} graph launches and {launches} kernel launches from the host; "
+          f"{syncs} stream syncs; device {device_ms:.3f} ms in {wall_ms:.3f} ms of profiled "
+          f"wall time (busy {busy})", flush=True)
+
+
+def replay_line(torch, label, fn, stats, trips, reps=20):
+    """The device's share of back-to-back calls of fn (CUDA-event time over
+    the host clock of the same calls; a graph's replay keeps the stream
+    occupied between its nodes too) and the mean time a node took: the
+    event time of one call over the nodes it ran (the graph's top level plus
+    each WHILE body times its trips)."""
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    enqueue_ms = (time.perf_counter() - t0) * 1e3 / reps
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / reps
+    device_ms = start.elapsed_time(end) / reps
+    run_nodes = stats.nodes - sum(stats.body_nodes) + sum(
+        n * k for n, k in zip(stats.body_nodes, trips))
+    print(f"replay: {label}: {device_ms:.3f} ms of the stream a call (CUDA events over {reps} "
+          f"back-to-back calls) in {wall_ms:.3f} ms of host wall time (share "
+          f"{device_ms / wall_ms:.3f}), {enqueue_ms:.3f} ms of host work to enqueue a call; "
+          f"{run_nodes} graph nodes run (bodies of {list(stats.body_nodes)} nodes, trips "
+          f"{list(trips)}): {device_ms * 1e3 / run_nodes:.2f} us a node", flush=True)
+    return dict(device_ms=device_ms, wall_ms=wall_ms, enqueue_ms=enqueue_ms, nodes_run=run_nodes)
 
 
 def compare(name, got, ref):
@@ -522,23 +569,26 @@ def kernel_phase(torch, np, dev):
 
 
 def counters():
-    """Each kernel's wrappers, whose `launches` count its kernel launches
-    (the chain kernel has one wrapper per mode)."""
+    """Each kernel's launch counters, one per wrapper (the chain kernel has
+    one wrapper per mode): eager launches count on the host, launches inside
+    a CUDA graph on the device, once per replay that ran them."""
     from parallel_ddp_tpu_torch.ops import cuda_rbd, cuda_riccati, cuda_rollout, cuda_sim_chain
 
-    return {"rbd_jac": (cuda_rbd.kuka_jac_qdd_cuda,), "rollout": (cuda_rollout.kuka_rollout_cuda,),
-            "riccati": (cuda_riccati.riccati_cuda,), "qdd": (cuda_rbd.kuka_qdd_cuda,),
-            "sim_chain": (cuda_sim_chain.kuka_open_loop_cuda, cuda_sim_chain.kuka_runner_cuda)}
+    return {"rbd_jac": (cuda_rbd.kuka_jac_qdd_cuda.counter,),
+            "rollout": (cuda_rollout.kuka_rollout_cuda.counter,),
+            "riccati": (cuda_riccati.riccati_cuda.counter,), "qdd": (cuda_rbd.kuka_qdd_cuda.counter,),
+            "sim_chain": (cuda_sim_chain.kuka_open_loop_cuda.counter,
+                          cuda_sim_chain.kuka_runner_cuda.counter)}
 
 
 def reset_counts():
     for wrappers in counters().values():
-        for w in wrappers:
-            w.launches = 0
+        for c in wrappers:
+            c.reset()
 
 
 def read_counts():
-    return {name: sum(w.launches for w in wrappers) for name, wrappers in counters().items()}
+    return {name: sum(c.launches for c in wrappers) for name, wrappers in counters().items()}
 
 
 def require_launched(path, counts):
@@ -549,7 +599,8 @@ def require_launched(path, counts):
 
 
 def solve_phase(torch, np, dev):
-    """The WAFR solve, cold + warm, with the launch counters."""
+    """The WAFR solve, cold + warm, each one graph replay, with the launch
+    counters; the cold and the first warm solve again on CPU tensors."""
     from parallel_ddp_tpu_torch.presets import ee_goal, figure8_goal, kuka_ee
     from parallel_ddp_tpu_torch.solver import make_ilqr_solver
 
@@ -566,30 +617,33 @@ def solve_phase(torch, np, dev):
     u0 = np.zeros((N, 7), np.float32)
     goal0 = [0.0, -0.55, 0.35]
     goals = [goal0] + [list(figure8_goal(MPC_DT * i)[0]) for i in range(1, N_WARM + 1)]
+    goals_dev = [ee_goal(g, device=dev) for g in goals]
+    x0_dev, u0_dev = torch.as_tensor(x0, device=dev), torch.as_tensor(u0, device=dev)
 
-    # warm-up solve: builds every per-device cache (constants, alphas)
-    solver(torch.as_tensor(x0, device=dev), torch.as_tensor(u0, device=dev),
-           ee_goal(goal0, device=dev), initial_rollout=True)
+    def warm(prev, goal):
+        return solver(prev.x, prev.u, goal, P0=prev.P, p0=prev.p, d0=prev.d, initial_rollout=False)
+
+    # the first calls capture the two graphs (a cold start rolls out, a warm
+    # one is given P0, p0 and d0): neither capture is in the counted run
+    warm(solver(x0_dev, u0_dev, goals_dev[0], initial_rollout=True), goals_dev[1])
     torch.cuda.synchronize()
 
     reset_counts()
-    outs = [solver(torch.as_tensor(x0, device=dev), torch.as_tensor(u0, device=dev),
-                   ee_goal(goals[0], device=dev), initial_rollout=True)]
+    outs = [solver(x0_dev, u0_dev, goals_dev[0], initial_rollout=True)]
     for i in range(1, N_WARM + 1):
-        prev = outs[-1]
-        outs.append(solver(prev.x, prev.u, ee_goal(goals[i], device=dev),
-                           P0=prev.P, p0=prev.p, d0=prev.d, initial_rollout=False))
+        outs.append(warm(outs[-1], goals_dev[i]))
     torch.cuda.synchronize()
     launches = read_counts()
-    print(f"solve: kernel launches during the cold + {N_WARM} warm solves: "
-          f"{json.dumps(launches)}", flush=True)
+    print(f"solve: kernel launches during the cold + {N_WARM} warm solves (graph replays, "
+          f"counted on the device): {json.dumps(launches)}", flush=True)
     # the solve's kernels: its cold rollout is one chain launch, so the
     # single-evaluation qdd kernel is not on this path
     require_launched("wafr_solve", launches)
 
     for i, out in enumerate(outs):
-        jt = out.J_trace.cpu().numpy()[: out.iters + 1]
-        at = out.alpha_trace.cpu().numpy()[1: out.iters + 1]
+        it = int(out.iters)
+        jt = out.J_trace.cpu().numpy()[: it + 1]
+        at = out.alpha_trace.cpu().numpy()[1: it + 1]
         kind = "cold" if i == 0 else f"warm{i}"
         print(f"solve: {kind}: J {np.array2string(jt, precision=4)} alphas {at.tolist()} "
               f"max_defect {float(out.max_defect):.3e}", flush=True)
@@ -597,44 +651,54 @@ def solve_phase(torch, np, dev):
             fail(f"{kind} solve: non-finite J")
         if np.any(np.diff(jt) > 0):
             fail(f"{kind} solve: J increased")
-    if not outs[0].J_trace[outs[0].iters] < outs[0].J_trace[0]:
+    if not outs[0].J_trace[int(outs[0].iters)] < outs[0].J_trace[0]:
         fail("cold solve did not reduce J below J0")
 
-    # the same cold solve on CPU tensors: the plain versions of every kernel
-    cpu = make_ilqr_solver(prob.plant, prob.cost, cfg)(
-        torch.as_tensor(x0), torch.as_tensor(u0), ee_goal(goals[0], device="cpu"),
-        initial_rollout=True)
-    gj = outs[0].J_trace.cpu().numpy()[: outs[0].iters + 1]
-    cj = cpu.J_trace.numpy()[: cpu.iters + 1]
-    ga = outs[0].alpha_trace.cpu().numpy()[: outs[0].iters + 1]
-    ca = cpu.alpha_trace.numpy()[: cpu.iters + 1]
-    print(f"solve: cpu (plain) cold: J {np.array2string(cj, precision=4)} "
-          f"alphas {ca[1:].tolist()}", flush=True)
-    if ga.shape != ca.shape or not np.array_equal(ga, ca) or not np.allclose(
-            gj, cj, rtol=SOLVE_RTOL, atol=0.0):
-        fail(f"GPU and CPU cold solves disagree (alphas {ga.tolist()} vs {ca.tolist()}, "
-             f"rtol {SOLVE_RTOL})")
-    print(f"solve: GPU and CPU traces agree (same alphas, J within rtol {SOLVE_RTOL}); "
-          f"host syncs per solve: {solver.host_syncs} for {outs[-1].iters} iterations",
-          flush=True)
-    return solver, outs[0], goals[1], launches
+    # the cold and the first warm solve on CPU tensors: the plain versions of
+    # every kernel, the host loops
+    cpu_solver = make_ilqr_solver(prob.plant, prob.cost, cfg)
+    cold = outs[0]
+    cpu_outs = [
+        cpu_solver(torch.as_tensor(x0), torch.as_tensor(u0), ee_goal(goals[0], device="cpu"),
+                   initial_rollout=True),
+        cpu_solver(cold.x.cpu(), cold.u.cpu(), ee_goal(goals[1], device="cpu"), P0=cold.P.cpu(),
+                   p0=cold.p.cpu(), d0=cold.d.cpu(), initial_rollout=False)]
+    for kind, gpu, cpu in (("cold", outs[0], cpu_outs[0]), ("warm1", outs[1], cpu_outs[1])):
+        gj = gpu.J_trace.cpu().numpy()[: int(gpu.iters) + 1]
+        cj = cpu.J_trace.numpy()[: int(cpu.iters) + 1]
+        ga = gpu.alpha_trace.cpu().numpy()[: int(gpu.iters) + 1]
+        ca = cpu.alpha_trace.numpy()[: int(cpu.iters) + 1]
+        print(f"solve: cpu (plain) {kind}: J {np.array2string(cj, precision=4)} "
+              f"alphas {ca[1:].tolist()}", flush=True)
+        if ga.shape != ca.shape or not np.array_equal(ga, ca) or not np.allclose(
+                gj, cj, rtol=SOLVE_RTOL, atol=0.0):
+            fail(f"GPU and CPU {kind} solves disagree (alphas {ga.tolist()} vs {ca.tolist()}, "
+                 f"rtol {SOLVE_RTOL})")
+    print(f"solve: GPU (graph replay) and CPU (host loop) cold and warm traces agree (same "
+          f"alphas, J within rtol {SOLVE_RTOL}); host reads of a GPU solve {solver.host_syncs}, "
+          f"of the CPU's warm solve {cpu_solver.host_syncs}", flush=True)
+    return solver, outs[0], goals_dev[1], launches
 
 
 def timing_phase(torch, np, dev, solver, cold, goal):
     """The first warm re-solve (from the cold solve's output toward the next
-    figure-8 goal), repeated: one MPC step's solve."""
-    from parallel_ddp_tpu_torch.presets import ee_goal
-
-    g = ee_goal(goal, device=dev)
+    figure-8 goal), replayed: one MPC step's solve."""
 
     def one():
-        return solver(cold.x, cold.u, g, P0=cold.P, p0=cold.p, d0=cold.d)
+        return solver(cold.x, cold.u, goal, P0=cold.P, p0=cold.p, d0=cold.d)
 
     for _ in range(3):
         one()
     # the syncs torch itself reports for one warm solve, beside the count
-    # the solver keeps
+    # the solver keeps: both must be 0
     _, torch_syncs = count_syncs(torch, one)
+    torch.cuda.synchronize()
+    reset_counts()
+    one()
+    torch.cuda.synchronize()
+    per_solve = read_counts()
+    print(f"timing: kernel launches in one replayed warm solve: {json.dumps(per_solve)}",
+          flush=True)
     times = []
     for _ in range(N_TIMED):
         start = torch.cuda.Event(enable_timing=True)
@@ -645,10 +709,14 @@ def timing_phase(torch, np, dev, solver, cold, goal):
         end.record()
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
-    print(f"timing: warm {N_ITERS}-iteration solve: median {float(np.median(times)):.3f} ms, "
-          f"min {min(times):.3f}, max {max(times):.3f} over {N_TIMED} solves; "
-          f"host syncs {solver.host_syncs} (torch sync-debug count {torch_syncs})", flush=True)
-    return float(np.median(times)), one
+    print(f"timing: warm {N_ITERS}-iteration solve (one graph replay): median "
+          f"{float(np.median(times)):.3f} ms, min {min(times):.3f}, max {max(times):.3f} over "
+          f"{N_TIMED} solves; host reads {solver.host_syncs} (torch sync-debug count "
+          f"{torch_syncs})", flush=True)
+    if solver.host_syncs or torch_syncs:
+        fail(f"a replayed warm solve synchronised with the host ({solver.host_syncs} reads, "
+             f"torch sync-debug count {torch_syncs})")
+    return float(np.median(times)), one, per_solve
 
 
 def fig8_goals(torch, np, times, x_init, dev):
@@ -705,10 +773,17 @@ def fig8_phase(torch, np, dev, card):
         series = {f: torch.cat([getattr(r, f) for r in outs]) for f in fields}
         return st, x, t, series, wall, syncs
 
+    # the first calls capture the cold solve's and the control step's graphs:
+    # neither capture is in the counted run
+    x_init_dev = torch.as_tensor(x_init, device=dev)
+    goal_start = {k: v[0] for k, v in goals_settle.items()}
+    run(ctrl.init_state(x_init_dev, t0=0.0, goal=goal_start, weights=w), x_init_dev, 0.0,
+        {k: v[:1] for k, v in goals_settle.items()}, w)
+    torch.cuda.synchronize()
+
     reset_counts()
     t_phase = time.perf_counter()
-    st = ctrl.init_state(torch.as_tensor(x_init, device=dev), t0=0.0,
-                         goal={k: v[0] for k, v in goals_settle.items()}, weights=w)
+    st = ctrl.init_state(x_init_dev, t0=0.0, goal=goal_start, weights=w)
     st, x, t, settle, settle_wall, _ = run_steps(st, x_init, 0.0, goals_settle, n_settle)
     settled = (MPCState(*(a.clone() for a in st)), x.clone(), t)
     ms_settle = settle_wall * 1e3 / n_settle
@@ -728,6 +803,8 @@ def fig8_phase(torch, np, dev, card):
     per_step = {k: (fig8_counts[k] - before_track[k]) / n_run for k in fig8_counts}
     qdd_family = per_step["qdd"] + per_step["sim_chain"]
 
+    if track_syncs:
+        fail(f"fig8: {track_syncs} host reads on the track (a control step must make none)")
     errs = track["ee_err"].cpu().numpy()
     settle_errs = settle["ee_err"].cpu().numpy()
     ok_rate = float(track["ok"].float().mean())
@@ -781,13 +858,19 @@ def fig8_phase(torch, np, dev, card):
                 and np.allclose(g_err, c_err, rtol=0.0, atol=FIG8_ERR_ATOL)):
             fail(f"fig8: {label}: GPU and CPU control steps disagree (J rtol {SOLVE_RTOL}, "
                  f"EE error atol {FIG8_ERR_ATOL} m)")
-        if torch_syncs > gpu.host_syncs:
-            fail(f"fig8: {label}: torch reports {torch_syncs} stream syncs, more than the "
-                 f"solver's {gpu.host_syncs} exit-flag reads")
+        if torch_syncs or gpu.host_syncs:
+            fail(f"fig8: {label}: the GPU's control steps synchronised with the host "
+                 f"({gpu.host_syncs} reads, torch sync-debug count {torch_syncs})")
         print(f"fig8: {label}: GPU and CPU agree (same accepts, J within rtol {SOLVE_RTOL}, EE "
               f"error within {FIG8_ERR_ATOL} m)", flush=True)
 
     gpu_vs_cpu("full re-rollout", run)
+    # ten replayed control steps under torch's sync debug mode
+    seg10 = {k: v[:10] for k, v in goals_track.items()}
+    _, loop_syncs = count_syncs(torch, lambda: run(st0, x0, t0_dev, seg10, w))
+    print(f"fig8: 10 replayed control steps: torch sync-debug count {loop_syncs}", flush=True)
+    if loop_syncs:
+        fail(f"fig8: 10 replayed control steps made {loop_syncs} stream syncs")
     # a path of its own: the block re-rollout warm start (full_rollout=False),
     # the first block by the chain, the two boundary defects by single steps
     # of the qdd kernel; 1 + FIG8_CPU_STEPS control steps on the card
@@ -795,6 +878,8 @@ def fig8_phase(torch, np, dev, card):
                              MPCConfig(max_iters_per_solve=N_ITERS, full_rollout=False))
     run_blk = make_device_mpc_loop(ctrl_blk, sim_rate_hz=FIG8_SIM_HZ,
                                    control_period_s=FIG8_PERIOD, sim_integrator=1)
+    run_blk(st0, x0, t0_dev, {k: v[:1] for k, v in goals_track.items()}, w)   # the capture
+    torch.cuda.synchronize()
     reset_counts()
     gpu_vs_cpu("block re-rollout", run_blk)
     blk_counts = read_counts()
@@ -871,7 +956,10 @@ def fig8_phase(torch, np, dev, card):
     if not ok:
         fail("fig8: the chain's runner mode disagrees with its plain version")
 
-    return {"fig8": fig8_counts, "fig8_block_rerollout": blk_counts}, control_step, runner
+    caches = {"fig-8 cold start": ctrl._warmup_solver(50).graphs, "fig-8 MPC step": ctrl.graphs,
+              "fig-8 loop": run.graphs, "block re-rollout loop": run_blk.graphs}
+    return ({"fig8": fig8_counts, "fig8_block_rerollout": blk_counts}, control_step, runner,
+            per_step, caches)
 
 
 def main():
@@ -903,22 +991,44 @@ def main():
         fail(f"build: {e}")
     print(f"build: {path.name} in {time.perf_counter() - t0:.1f} s (nvcc {nvcc_s:.1f} s); "
           f"ptxas: {' | '.join(ptxas_summary(log))}", flush=True)
+    # the launch counters that graphs increment on the device, one per wrapper
+    # (the wrappers' modules register them when imported)
+    from parallel_ddp_tpu_torch.ops import cuda_rbd, cuda_riccati, cuda_rollout, cuda_sim_chain  # noqa: F401
+
+    build.prepare_counters(dev)
 
     kernels = kernel_phase(torch, np, dev)
     if sys.argv[1:] == ["--kernels-only"]:      # a short run while working on a kernel
         print("stopped after the kernel phase (--kernels-only): no result line", flush=True)
         return
     solver, cold, goal, launches = solve_phase(torch, np, dev)
-    median_ms, warm_solve = timing_phase(torch, np, dev, solver, cold, goal)
-    fig8_launches, control_step, runner = fig8_phase(torch, np, dev, card)
+    median_ms, warm_solve, per_solve = timing_phase(torch, np, dev, solver, cold, goal)
+    fig8_launches, control_step, runner, per_step, fig8_caches = fig8_phase(torch, np, dev, card)
+    caches = {"WAFR solver": solver.graphs, **fig8_caches}
     chain = next(r for r in kernels if r["name"] == "sim_chain")
     chain["max_abs_err"] = max(chain["max_abs_err"], runner.pop("max_abs_err"))
     chain["ok"] = chain["ok"] and runner.pop("ok")
     chain.update(runner)
+    # the WHILE trips of one call, from the launch counters: an iteration
+    # runs one Jacobian launch, a rho attempt one Riccati launch
+    trips = lambda c: (c["rbd_jac"], c["riccati"] - c["rbd_jac"])
+    reset_counts()
+    control_step()
+    torch.cuda.synchronize()
+    step_counts = read_counts()
+    replay_line(torch, f"warm {N_ITERS}-iteration solve", warm_solve,
+                solver.graphs.stats()[-1], trips(per_solve))
+    replay_line(torch, "fig-8 control step (a 1-step loop call)", control_step,
+                fig8_caches["fig-8 loop"].stats()[0], trips(step_counts))
     # last: once the profiler has attached to the card, launches may cost
     # more for the rest of the process
-    profile_line(torch, f"warm {N_ITERS}-iteration solve", warm_solve)
-    profile_line(torch, "fig-8 control step", control_step)
+    profile_line(torch, f"replayed warm {N_ITERS}-iteration solve", warm_solve)
+    profile_line(torch, "replayed fig-8 control step", control_step)
+    print("graphs: " + "; ".join(
+        f"{g.label} ({where}): captured and instantiated in {g.seconds:.3f} s, {g.nodes} nodes "
+        f"(WHILE bodies {list(g.body_nodes)}), pool {g.pool_bytes} B"
+        for where, cache in caches.items() for g in cache.stats()),
+        flush=True)
 
     # launches: the kernel's count on the path LAUNCHES_FROM names (the fig-8
     # closed loop where that runs it); launches_<path>: every path's own count
@@ -932,6 +1042,8 @@ def main():
         | {k: v for k, v in r.items()
            if k.startswith(("ms_", "plain_ms_b", "host_us", "kernel_us", "bytes", "operations"))}
         | {f"launches_{path}": counts[r["name"]] for path, counts in by_path.items()}
+        | {"launches_per_warm_solve": per_solve[r["name"]],
+           "launches_per_control_step": per_step[r["name"]]}
         for r in kernels]}
     print(f"solve: median {median_ms:.3f} ms per warm {N_ITERS}-iteration solve on {card}",
           flush=True)

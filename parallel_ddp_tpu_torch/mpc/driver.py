@@ -20,8 +20,14 @@ unless `init_state` is told another device.  Each control step:
      610, 668).
 
 The shift index, accept and reset decisions stay on the device
-(`torch.where` and index tensors): a step reads nothing on the host beyond
-the solver's own exit-flag reads (`host_syncs`).  The fleet entry points
+(`torch.where` and index tensors).  On the CPU a step reads nothing on the
+host beyond the solver's own exit-flag reads (`host_syncs`).  On the card
+`step` replays one CUDA graph that holds the whole step (`graphs.py`;
+captured once per static signature: the state's and goal's shapes, the cost
+weights), the solve's loops as WHILE nodes: it reads nothing on the host, and
+goal, iteration cap and state may change every call without a new capture
+(the reference jits its step the same way).  `init_state` runs its cold
+solve through the solver's own graph.  The fleet entry points
 (`init_state_batch`, `step_batch`) are not ported yet.
 """
 
@@ -32,13 +38,14 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from parallel_ddp_tpu_torch import graphs
 from parallel_ddp_tpu_torch.config import CostWeights, SolverConfig
 from parallel_ddp_tpu_torch.costs.base import CostModel
 from parallel_ddp_tpu_torch.device import as_tensor
 from parallel_ddp_tpu_torch.models.base import Plant
 from parallel_ddp_tpu_torch.ops.cuda_sim_chain import make_sim_chain
 from parallel_ddp_tpu_torch.ops.integrators import make_step
-from parallel_ddp_tpu_torch.solver import make_ilqr_solver
+from parallel_ddp_tpu_torch.solver import make_ilqr_solver, refuse_tf32
 
 
 @dataclasses.dataclass(frozen=True)
@@ -72,11 +79,19 @@ class MPCState(NamedTuple):
 
 class MPCStepInfo(NamedTuple):
     J: torch.Tensor
-    iters: int
+    iters: torch.Tensor   # 0-d int32 on the state's device
     accepted: torch.Tensor
     shift_steps: torch.Tensor
     max_defect: torch.Tensor
     ok: torch.Tensor = None  # accepted OR converged (not a real failure)
+
+
+def device_scalar(v, device, dtype=torch.float32) -> torch.Tensor:
+    """v as a 0-d tensor on device: a tensor is moved, a number is written
+    by a fill on the device (a copy from the host would synchronise)."""
+    if isinstance(v, torch.Tensor):
+        return v.to(device=device, dtype=dtype)
+    return torch.full((), v, dtype=dtype, device=device)
 
 
 def _shift(a: torch.Tensor, s) -> torch.Tensor:
@@ -106,6 +121,8 @@ class MPCController:
         self._chain = make_sim_chain(plant, cfg.integrator, cfg.dt)
         self._step = make_step(plant, cfg.integrator, cfg.dt)   # single steps
         self._init_solvers: dict = {}  # warmup_iters -> solver
+        self.graphs = graphs.GraphCache("mpc_step")
+        self._host_syncs = 0
         # wall-clock budget model (see the reference's MPCController): a
         # time budget becomes an iteration cap time/per_iter, calibrated from
         # live solves as wall = overhead + per_iter*iters over the minimum
@@ -116,8 +133,9 @@ class MPCController:
 
     @property
     def host_syncs(self) -> int:
-        """Exit-flag reads on the host by the last step's solve."""
-        return self._solver.host_syncs
+        """Exit-flag reads on the host by the last step's solve (0 on the
+        card, where the step is a graph replay)."""
+        return self._host_syncs
 
     def _warmup_solver(self, warmup_iters: int):
         """Cached full-convergence solver for cold starts."""
@@ -182,7 +200,9 @@ class MPCController:
             d[b0] = self._step(x_last, u[b0]) - x[b0 + 1]
         return x, u, k_mat, p_mat, p_vec, d
 
-    def _mpc_step(self, st: MPCState, x_actual, t_now, goal, weights, iter_limit: int):
+    def _mpc_step(self, st: MPCState, x_actual, t_now, goal, weights, iter_limit):
+        """The step's body (what `step` captures on the card): iter_limit is
+        an int in [1, max_iters_per_solve] or a 0-d integer tensor."""
         dt = self.cfg.dt
         s_f = (t_now - st.t0) / dt
         s = torch.floor(s_f).to(torch.int32)          # MPCHelpers.cuh:875
@@ -193,13 +213,9 @@ class MPCController:
 
         x_w, u_w, k_w, pm_w, pv_w, d_w = self._warm_start(st, x_actual, s)
 
-        out = self._solver(
-            x_w, u_w, goal, weights,
-            P0=pm_w, p0=pv_w, d0=d_w,
-            initial_rollout=False,
-            ignore_first_defect=self.mpc.ignore_defect_online,
-            iter_limit=iter_limit,
-        )
+        out, self._host_syncs = self._solver.run(
+            x_w, u_w, goal, pm_w, pv_w, d_w, iter_limit, weights,
+            initial_rollout=False, ignore_first_defect=self.mpc.ignore_defect_online)
         accepted = (out.alpha_trace[1:] >= 0).any()
 
         # failure handling (storeVarsGPU_MPC, MPCHelpers.cuh:752-774): a solve
@@ -251,8 +267,7 @@ class MPCController:
     def warmup(self, st: MPCState, goal, weights: Optional[CostWeights] = None):
         """Run one MPC step and discard it, so the first live step does not
         pay for first-use work (kernel build, per-device constants)."""
-        w = weights if weights is not None else CostWeights()
-        out = self._mpc_step(st, st.x[0], st.t0, goal, w, self.mpc.max_iters_per_solve)
+        out = self.step(st, st.x[0], st.t0, goal, weights)
         if out[0].x.device.type == "cuda":
             torch.cuda.synchronize(out[0].x.device)
 
@@ -291,8 +306,14 @@ class MPCController:
         GOAL/COST_PARAMS/SOLVER_PARAMS channels, LCMHelpers.cuh:204-214)."""
         w = weights if weights is not None else CostWeights()
         dev = st.x.device
-        return self._mpc_step(
-            st, torch.as_tensor(x_actual, dtype=torch.float32, device=dev),
-            torch.as_tensor(t_now, dtype=torch.float32, device=dev),
-            goal, w, self._resolve_iter_limit(iter_limit, time_limit_ms),
-        )
+        args = (st, torch.as_tensor(x_actual, dtype=torch.float32, device=dev),
+                device_scalar(t_now, dev), goal,
+                self._resolve_iter_limit(iter_limit, time_limit_ms))
+        if not graphs.replayed(dev):
+            return self._mpc_step(*args[:4], w, args[4])
+        refuse_tf32(dev)
+        graph = self.graphs.get(graphs.signature(args, w), lambda st_, x_, t_, g_, cap:
+                                self._mpc_step(st_, x_, t_, g_, w, cap), args)
+        out = graph(*args)
+        self._host_syncs = 0
+        return out

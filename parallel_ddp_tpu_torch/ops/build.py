@@ -13,6 +13,7 @@ Nothing here runs at import time: `library()` builds on first use.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import hashlib
@@ -21,12 +22,14 @@ import pathlib
 import shutil
 import subprocess
 import tempfile
+import threading
 import time
 
 import torch
 
 CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
-SOURCES = ("common.cu", "rbd_jac.cu", "rollout.cu", "riccati.cu", "qdd.cu", "sim_chain.cu")
+SOURCES = ("common.cu", "rbd_jac.cu", "rollout.cu", "riccati.cu", "qdd.cu", "sim_chain.cu",
+           "graph_nodes.cu")
 BUILD_ROOT = pathlib.Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -52,6 +55,13 @@ _SIGNATURES = {
     # consts, x0, u, traj_x, traj_u, traj_K, t0, t, xs, t_out, batch, T, n_traj,
     # traj_dt, sim_dt, use_feedback, integrator, h, h_half, h_sixth, stream
     "pddp_sim_chain": (_P,) * 10 + (_I, _I, _I, _F, _F, _I, _I, _F, _F, _F, _P),
+    # parent stream, flag, body stream, capture mode, handle out, body graph out
+    "pddp_while_begin": (_P, _P, _P, _I, ctypes.POINTER(ctypes.c_ulonglong),
+                         ctypes.POINTER(ctypes.c_void_p)),
+    # body stream, handle, flag
+    "pddp_while_end": (_P, ctypes.c_ulonglong, _P),
+    # graph, node count out
+    "pddp_graph_nodes": (_P, ctypes.POINTER(ctypes.c_ulonglong)),
 }
 # the raw handle of a device's current stream without building a Stream object
 _RAW_STREAM = getattr(torch._C, "_cuda_getCurrentRawStream", None)
@@ -184,3 +194,72 @@ def check(status: int, kernel: str) -> None:
     if status != 0:
         msg = library().pddp_error_string(status).decode()
         raise RuntimeError(f"{kernel} launch failed: CUDA error {status} ({msg})")
+
+
+class LaunchCounter:
+    """How many times one kernel wrapper's kernel ran.
+
+    A launch enqueued eagerly counts on the host.  A launch captured into a
+    CUDA graph captures, beside the kernel, an increment of a counter on the
+    device, so each replay counts the kernels it ran: a loop body's as many
+    times as the loop went round, none for a body the loop skipped.  Reading
+    `launches` waits for the device once a graph has counted."""
+
+    def __init__(self, name: str):
+        self.name = name
+        self._host = 0
+        self._device: dict = {}          # torch.device -> 0-d int64 tensor
+
+    def prepare(self, device: torch.device) -> None:
+        """Make the device counter (before a capture: none is made during one)."""
+        if device not in self._device:
+            self._device[device] = torch.zeros((), dtype=torch.int64, device=device)
+
+    def hit(self, device: torch.device) -> None:
+        """Count one launch on `device`, enqueued now or captured."""
+        if getattr(_uncounted, "on", False):
+            return
+        if device.type == "cuda" and torch.cuda.is_current_stream_capturing():
+            found = self._device.get(device)
+            if found is None:
+                raise RuntimeError(f"{self.name}: no launch counter on {device} for the "
+                                   "capture (build.prepare_counters before capturing)")
+            found.add_(1)
+        else:
+            self._host += 1
+
+    @property
+    def launches(self) -> int:
+        return self._host + sum(int(c) for c in self._device.values())
+
+    def reset(self) -> None:
+        self._host = 0
+        for c in self._device.values():
+            c.zero_()
+
+
+COUNTERS: dict = {}                      # name -> LaunchCounter, one per wrapper
+_uncounted = threading.local()
+_uncounted.on = False
+
+
+@contextlib.contextmanager
+def uncounted():
+    """Launch no counting node and count nothing: for graphs that time a
+    kernel alone, whose launches are not a path's."""
+    prev = getattr(_uncounted, "on", False)
+    _uncounted.on = True
+    try:
+        yield
+    finally:
+        _uncounted.on = prev
+
+
+def launch_counter(name: str) -> LaunchCounter:
+    COUNTERS[name] = LaunchCounter(name)
+    return COUNTERS[name]
+
+
+def prepare_counters(device: torch.device) -> None:
+    for c in COUNTERS.values():
+        c.prepare(device)

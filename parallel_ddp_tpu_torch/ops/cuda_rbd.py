@@ -80,11 +80,11 @@ def kuka_qdd_cuda(x, u, ee_type: int = 1, gravity: float = 9.81):
     cc = consts_tensor(ee_type, float(gravity), x.device)
     build.launch("pddp_qdd", x.device, cc.data_ptr(), xf.data_ptr(), uf.data_ptr(),
                  qdd.data_ptr(), B)
-    kuka_qdd_cuda.launches += 1
+    kuka_qdd_cuda.counter.hit(x.device)
     return qdd.reshape(lead + (N_JOINTS,))
 
 
-kuka_qdd_cuda.launches = 0
+kuka_qdd_cuda.counter = build.launch_counter("qdd")
 
 
 def kuka_qdd(x, u, ee_type: int = 1, gravity: float = 9.81):
@@ -122,7 +122,7 @@ def _launch_rbd_jac(x, u, ee_type, gravity, jac, qdd, ab, dt):
     ptr = lambda t: None if t is None else t.data_ptr()
     build.launch("pddp_rbd_jac", x.device, cc.data_ptr(), x.data_ptr(), u.data_ptr(),
                  ptr(jac), ptr(qdd), ptr(ab), B, dt)
-    kuka_jac_qdd_cuda.launches += 1
+    kuka_jac_qdd_cuda.counter.hit(x.device)
 
 
 def kuka_jac_qdd_cuda(x, u, ee_type: int = 1, gravity: float = 9.81):
@@ -134,7 +134,8 @@ def kuka_jac_qdd_cuda(x, u, ee_type: int = 1, gravity: float = 9.81):
     return jac, qdd
 
 
-kuka_jac_qdd_cuda.launches = 0     # launches of the kernel, by either wrapper
+# launches of the kernel, by either wrapper
+kuka_jac_qdd_cuda.counter = build.launch_counter("rbd_jac")
 
 
 def kuka_euler_ab_cuda(x, u, dt: float, ee_type: int = 1, gravity: float = 9.81):

@@ -72,13 +72,13 @@ def riccati_cuda(rho, seeds_P, seeds_p, AB_blk, H_blk, g_blk, d_blk, k_blk, *,
         1 if rho.dim() else 0, AB_blk.data_ptr(), H_blk.data_ptr(), g_blk.data_ptr(),
         d_blk.data_ptr(), k_blk.data_ptr(), *ptrs[:6], ptrs[8], ptrs[9], ptrs[6], ptrs[7],
         ptrs[10], Mb, Nb, n, m, nf, n_blocks_f, int(state_reg), int(use_defect), None)
-    riccati_cuda.launches += 1
+    riccati_cuda.counter.hit(dev)
     # the kernel wrote fail as int32 0 or 1: its low byte is a valid bool
     return (P.view(steps, n, n), p.view(steps, n), K.view(steps, m, n), du.view(steps, m),
             ApBK.view(steps, n, n), Bdu.view(steps, n), dj, fail.view(torch.bool)[0])
 
 
-riccati_cuda.launches = 0
+riccati_cuda.counter = build.launch_counter("riccati")
 
 
 def make_riccati_block_call(cfg, n: int, m: int, mb: int | None = None):

@@ -116,11 +116,11 @@ def kuka_rollout_cuda(x_swept, u, K, du, xp, alphas, skip, *, ee_type: int,
         du.data_ptr(), xp.data_ptr(), alphas.data_ptr(), skip.data_ptr(),
         xout.data_ptr(), uout.data_ptr(), A, M, nf, integrator,
         dt, 0.5 * dt, dt / 6.0)
-    kuka_rollout_cuda.launches += 1
+    kuka_rollout_cuda.counter.hit(x_swept.device)
     return xout, uout
 
 
-kuka_rollout_cuda.launches = 0
+kuka_rollout_cuda.counter = build.launch_counter("rollout")
 
 
 def make_kuka_fused_rollout(ee_type: int, gravity: float, integrator: int,

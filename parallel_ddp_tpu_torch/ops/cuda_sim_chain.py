@@ -116,11 +116,11 @@ def kuka_open_loop_cuda(x0, u, *, ee_type: int, gravity: float, integrator: int,
     if batch and steps:
         _launch(xf, uf, (None, None, None), (None, None), xs, None, batch, steps, 0.0, 0.0,
                 False, ee_type, gravity, integrator, dt)
-        kuka_open_loop_cuda.launches += 1
+        kuka_open_loop_cuda.counter.hit(xf.device)
     return xs
 
 
-kuka_open_loop_cuda.launches = 0
+kuka_open_loop_cuda.counter = build.launch_counter("sim_chain_open_loop")
 
 
 def kuka_runner_cuda(traj_x, traj_u, traj_K, t0, traj_dt, t, x, steps, use_feedback=True, *,
@@ -149,11 +149,11 @@ def kuka_runner_cuda(traj_x, traj_u, traj_K, t0, traj_dt, t, x, steps, use_feedb
     xs, t_new = out[:steps * NS].view(steps, NS), out[steps * NS]
     _launch(x, None, (traj_x, traj_u, traj_K), (t0, t), xs, t_new, 1, steps, traj_dt, sim_dt,
             use_feedback, ee_type, gravity, integrator, sim_dt)
-    kuka_runner_cuda.launches += 1
+    kuka_runner_cuda.counter.hit(x.device)
     return xs, t_new
 
 
-kuka_runner_cuda.launches = 0
+kuka_runner_cuda.counter = build.launch_counter("sim_chain_runner")
 
 
 def make_kuka_sim_chain(ee_type: int, gravity: float, integrator: int, dt: float) -> SimChain:

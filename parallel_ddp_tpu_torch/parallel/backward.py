@@ -17,8 +17,9 @@ Per step (bpHelpers.cuh:37-334), with V_{k+1} = (P, p):
 
 With `cfg.pallas_riccati` one rho attempt is one call of the fused Riccati
 op (`ops/cuda_riccati.py`); otherwise the sweep is the per-step loop below.
-The rho-retry loop reads its exit flag on the host: one device sync per
-attempt.
+The rho-retry loop is a `graphs.while_loop`: a WHILE node of the graph being
+captured on the card (the device decides how many attempts run), a host loop
+on the CPU that reads its exit flag once per attempt.
 """
 
 from __future__ import annotations
@@ -27,6 +28,7 @@ from typing import NamedTuple
 
 import torch
 
+from parallel_ddp_tpu_torch import graphs
 from parallel_ddp_tpu_torch.config import SolverConfig
 from parallel_ddp_tpu_torch.ops.linalg import chol_solve_unrolled
 
@@ -42,7 +44,8 @@ class BackwardPassResult(NamedTuple):
     fail: torch.Tensor   # bool: any Huu factorization failed
     rho: torch.Tensor    # regularizer after retries
     drho: torch.Tensor
-    host_syncs: int      # exit-flag reads of the rho-retry loop (one per attempt)
+    host_syncs: int      # exit-flag reads of the rho-retry loop (one per attempt;
+                         # none under capture)
 
 
 def make_riccati_step(cfg: SolverConfig, n: int, m: int):
@@ -214,19 +217,27 @@ def backward_pass(
             return (flat(P_o), flat(p_o), flat(K_o), flat(du_o), flat(ApBK_o),
                     flat(Bdu_o), dj_o.sum(dim=(0, 1)), fail_o.any())
 
-    # rho-retry loop (backwardPassGPU, bpHelpers.cuh:489-515) with a safety
-    # cap; its exit flag is read on the host (one sync per attempt)
-    rho, drho = rho0, drho0
-    out = attempt(rho)
-    retries = syncs = 0
-    while retries < cfg.max_bp_retries:
-        syncs += 1
-        if not bool(out[7]):
-            break
-        drho = torch.clamp(drho * cfg.rho_factor, min=cfg.rho_factor)
-        rho = torch.clamp(rho * drho, max=cfg.rho_max)
-        out = attempt(rho)
-        retries += 1
+    # rho-retry loop (backwardPassGPU, bpHelpers.cuh:489-515; the reference
+    # package's retry_cond / retry_body) with a safety cap.  The first
+    # attempt's outputs, rho and drho are the loop's state: each retry
+    # commits under `go`, so a retry that was not needed changes nothing.
+    out = list(attempt(rho0))
+    rho, drho = rho0.clone(), drho0.clone()
+    tries = torch.zeros((), dtype=torch.int32, device=x.device)
+
+    def retry_cond():
+        return torch.logical_and(out[7], tries < cfg.max_bp_retries)
+
+    def retry_body(go):
+        drho_new = torch.clamp(drho * cfg.rho_factor, min=cfg.rho_factor)
+        rho_new = torch.clamp(rho * drho_new, max=cfg.rho_max)
+        for held, new in zip(out, attempt(rho_new)):
+            held.copy_(torch.where(go, new, held))
+        drho.copy_(torch.where(go, drho_new, drho))
+        rho.copy_(torch.where(go, rho_new, rho))
+        tries.add_(go.to(torch.int32))
+
+    syncs = graphs.while_loop(retry_cond, retry_body, cfg.max_bp_retries)
     P_o, p_o, K_o, du_o, ApBK_o, Bdu_o, dJexp, fail = out
     return BackwardPassResult(P_o, p_o, K_o, du_o, ApBK_o, Bdu_o, dJexp, fail,
                               rho, drho, syncs)

@@ -6,12 +6,17 @@ Each iteration is
   derivative recompute,
 all on the device of the tensors passed in (an x0 given as a list or numpy
 array goes to the card, `device.default_device()`, unless the call names a
-`device`).  The reference package's
-`lax.while_loop` becomes a Python `while` loop that reads its exit flag on the
-host: one device sync per iteration (none after the last one allowed by the
-iteration budget), plus one per rho attempt inside the backward pass.
-`solver.host_syncs` holds the count of the last solve.  Exit conditions match
-acceptRejectTraj* (nisInitHelpers.cuh:487-592).
+`device`).  Like the reference package's `lax.while_loop`, the iteration is
+one body (`_Solver._iteration`) that commits every result under
+active = ~done & (it <= cap), so it can run past the end of a solve and
+change nothing.  Two loops run it:
+  * on the CPU, a host loop that reads the exit flag once per iteration but
+    the last one the budget allows, plus once per rho attempt inside the
+    backward pass (`solver.host_syncs` holds the count of the last solve);
+  * on the card, one replay of a CUDA graph (`graphs.py`) in which the
+    iterations and the rho retry are WHILE nodes: the host reads nothing,
+    and `host_syncs` is 0.
+Exit conditions match acceptRejectTraj* (nisInitHelpers.cuh:487-592).
 """
 
 from __future__ import annotations
@@ -20,6 +25,7 @@ from typing import Optional
 
 import torch
 
+from parallel_ddp_tpu_torch import graphs
 from parallel_ddp_tpu_torch.config import CostWeights, SolveOutput, SolverConfig
 from parallel_ddp_tpu_torch.costs.base import CostModel
 from parallel_ddp_tpu_torch.device import as_tensor
@@ -64,8 +70,56 @@ def open_loop_rollout(cfg: SolverConfig, open_loop, x0_state, u):
     return x_new, d
 
 
+def refuse_tf32(device: torch.device) -> None:
+    """Raise on the card when TF32 matmuls are on: TF32 keeps ~3 decimal
+    digits, Huu turns indefinite and the Riccati recursion fails (the
+    reference pins "highest" precision)."""
+    if device.type == "cuda" and torch.backends.cuda.matmul.allow_tf32:
+        raise RuntimeError(
+            "torch.backends.cuda.matmul.allow_tf32 is True; the Riccati and "
+            "RBD math needs full float32 matmuls")
+
+
+class _Carry:
+    """The solve's state across iterations: the reference's `_Carry`, held in
+    tensors that `_iteration` updates in place (a captured loop body can
+    only hand its results on through memory written before the loop).
+    AB/H/g are not carried: each iteration computes them first.  The
+    reference's xp is always x, and its Pp/pp always P/p."""
+
+    FIELDS = ("x", "u", "d", "xp2", "P", "p", "K", "du", "prevJ", "rho", "drho",
+              "ignore_defect", "it", "done", "converged", "feasible", "J_trace",
+              "alpha_trace", "defect_trace", "max_defect")
+
+    def __init__(self, **fields):
+        for name in self.FIELDS:
+            setattr(self, name, fields[name])
+
+    def commit(self, name, where, value):
+        """field <- value where `where` holds (in place)."""
+        held = getattr(self, name)
+        held.copy_(torch.where(where, value, held))
+
+    def record(self, name, where, value):
+        """trace[it] <- value where `where` holds (in place, at the device
+        index it, clamped to the trace so a spent solve writes nothing)."""
+        trace = getattr(self, name)
+        idx = torch.clamp(self.it, max=trace.shape[0] - 1).to(torch.int64).reshape(1)
+        held = trace.index_select(0, idx)
+        trace.index_copy_(0, idx, torch.where(where, value.reshape(1).to(trace.dtype), held))
+
+
 class _Solver:
-    """The solve function for one (plant, cost, config) triple."""
+    """The solve function for one (plant, cost, config) triple.
+
+    On the CPU a call runs `_init_carry`, then `_iteration` in a host loop
+    that reads the exit flag once per iteration but the last.  On the card a
+    call replays a CUDA graph (`graphs.py`) that holds the same body in a
+    WHILE node; it is captured once per static signature (shapes, dtype,
+    the two flags, which of P0/p0/d0 are given, the goal's structure and
+    the cost weights, which are baked into the cost's operations).  The
+    iteration cap is a device scalar of the graph, so a new `iter_limit`
+    needs no new capture."""
 
     def __init__(self, plant: Plant, cost: CostModel, cfg: SolverConfig):
         unported = [f for f in ("use_finite_diff", "bf16_rollout", "bf16_cost",
@@ -87,6 +141,7 @@ class _Solver:
                 cfg.integrator, cfg.dt, cfg.num_time_steps, cfg.m_blocks_f,
                 cfg.num_alpha)
         self._alphas = {}
+        self.graphs = graphs.GraphCache("solve")
         self.host_syncs = 0
 
     def alphas(self, device, dtype) -> torch.Tensor:
@@ -109,44 +164,74 @@ class _Solver:
         iter_limit: Optional[int] = None,
         device=None,
     ) -> SolveOutput:
-        cfg, cost, plant = self.cfg, self.cost, self.plant
+        cfg = self.cfg
         x0 = as_tensor(x0, device=device)
         dtype, device = x0.dtype, x0.device
-        if device.type == "cuda" and torch.backends.cuda.matmul.allow_tf32:
-            # TF32 keeps ~3 decimal digits: Huu turns indefinite and the
-            # Riccati recursion fails (the reference pins "highest" precision)
-            raise RuntimeError(
-                "torch.backends.cuda.matmul.allow_tf32 is True; the Riccati and "
-                "RBD math needs full float32 matmuls")
+        refuse_tf32(device)
         u0 = torch.as_tensor(u0, dtype=dtype, device=device)
         w = weights if weights is not None else CostWeights()
-        N = cfg.num_time_steps
-        n, m = plant.n_state, plant.n_ctrl
         it_cap = cfg.max_iter if iter_limit is None else min(max(int(iter_limit), 1), cfg.max_iter)
-        alphas = self.alphas(device, dtype)
+        flags = (bool(initial_rollout), bool(ignore_first_defect))
+        args = (x0, u0, goal, P0, p0, d0, it_cap)
+        if not graphs.replayed(device):
+            out, self.host_syncs = self.run(*args, w, *flags)
+            return out
+        fn = lambda *a: self.run(*a, w, *flags)[0]
+        graph = self.graphs.get(graphs.signature(args, w, flags), fn, args)
+        out = graph(*args)
+        self.host_syncs = 0
+        return out
+
+    def run(self, x0, u0, goal, P0, p0, d0, it_cap, w: CostWeights,
+            initial_rollout: bool, ignore_first_defect: bool):
+        """One solve on the device of x0 (the body the card's graphs
+        capture): returns (SolveOutput, host reads of device values).
+        it_cap: the iteration cap, an int or a 0-d integer tensor."""
+        c = self._init_carry(x0, u0, goal, w, P0, p0, d0, initial_rollout, ignore_first_defect)
+        syncs = self._drive(c, goal, w, it_cap)
+        return SolveOutput(
+            x=c.x, u=c.u, K=c.K, d=c.d, P=c.P, p=c.p, J=c.prevJ, iters=c.it - 1,
+            J_trace=c.J_trace, alpha_trace=c.alpha_trace, rho=c.rho,
+            max_defect=c.max_defect, converged=c.converged, last_feasible=c.feasible,
+            defect_trace=c.defect_trace,
+        ), syncs
+
+    def _drive(self, c: _Carry, goal, w, it_cap) -> int:
+        """Run the iterations on c; returns the host reads made."""
+        if isinstance(it_cap, torch.Tensor) or graphs.capturing(c.x) or graphs.in_masked():
+            # the graph's loop (a WHILE node) and the masked one (graphs.py)
+            return graphs.while_loop(
+                lambda: torch.logical_and(~c.done, c.it <= it_cap),
+                lambda go: self._iteration(c, goal, w, it_cap), self.cfg.max_iter)
+        # the CPU's: one read of the exit flag per iteration, none after the
+        # iteration the budget ends
+        cap = torch.full((), it_cap, dtype=torch.int32, device=c.x.device)
+        syncs = 0
+        for it in range(1, it_cap + 1):
+            syncs += self._iteration(c, goal, w, cap)
+            if it == it_cap:
+                break
+            syncs += 1
+            if bool(c.done):
+                break
+        return syncs
+
+    def _init_carry(self, x0, u0, goal, w, P0, p0, d0, initial_rollout, ignore_first_defect):
+        """The state before the first iteration (fresh tensors: the caller's
+        are never written)."""
+        cfg = self.cfg
+        N = cfg.num_time_steps
+        n, m = self.plant.n_state, self.plant.n_ctrl
+        dtype, device = x0.dtype, x0.device
         zeros = lambda *shape: torch.zeros(shape, dtype=dtype, device=device)
         full = lambda value, dt=dtype: torch.full((), value, dtype=dt, device=device)
-
-        def stage(xk, uk, k):
-            return cost.stage(xk, uk, k, goal, w)
-
         if initial_rollout:
             x, d = open_loop_rollout(cfg, self.chain.open_loop, x0, u0)
         else:
-            x = x0
-            d = d0 if d0 is not None else zeros(N, n)
-        u = u0
-        P = Pp = P0 if P0 is not None else zeros(N, n, n)
-        p = pp = p0 if p0 is not None else zeros(N, n)
-        K, du = zeros(N, m, n), zeros(N, m)
-        xp = xp2 = x
-
-        AB, H, g = _derivatives(cfg, self.step_jac, cost.quad, x, u, goal, w)
-        J0 = stage(x, u, torch.arange(N, device=device)).sum()
-        # epsilon bump so a zero first update does not instantly "converge"
-        # (initAlgGPU, nisInitHelpers.cuh:392-395)
-        prevJ = J0 + 2.0 * cfg.tol_cost
-
+            x = x0.clone()
+            d = d0.clone() if d0 is not None else zeros(N, n)
+        u = u0.clone()
+        J0 = self.cost.stage(x, u, torch.arange(N, device=device), goal, w).sum()
         J_trace = torch.full((cfg.max_iter + 1,), torch.nan, dtype=dtype, device=device)
         J_trace[0] = J0
         alpha_trace = torch.full((cfg.max_iter + 1,), -2, dtype=torch.int32, device=device)
@@ -155,79 +240,88 @@ class _Solver:
         alpha_trace[:1].fill_(0 if initial_rollout else -1)
         defect_trace = torch.full((cfg.max_iter + 1,), torch.nan, dtype=dtype, device=device)
         defect_trace[0] = d.abs().sum(-1).amax()
-
-        rho, drho = full(cfg.rho_init), full(1.0)
-        ignore_defect = full(bool(ignore_first_defect), torch.bool)
-        converged, feasible = full(False, torch.bool), full(True, torch.bool)
-        max_defect = full(0.0)
-        f = cfg.rho_factor
-        it = 1
-        syncs = 0
-        while True:
-            # BACKWARD PASS (with rho retry) -----------------------------------
-            bp = backward_pass(cfg, AB, H, g, Pp, pp, d, x, xp2, rho, drho)
-            syncs += bp.host_syncs
-
-            # FORWARD PASS ------------------------------------------------------
-            ro = forward_pass(cfg, self.step_fn, stage, x, u, d, bp.K, bp.du,
-                              bp.ApBK, bp.Bdu, xp, alphas, fused_sim=self.fused_sim)
-            ls = line_search(cfg, ro.J, ro.max_defect, alphas, bp.dJexp, prevJ,
-                             ignore_defect)
-
-            # ACCEPT / REJECT + rho schedule (acceptRejectTrajGPU,
-            # nisInitHelpers.cuh:487-518) ---------------------------------------
-            accept = torch.logical_and(ls.accept, ~bp.fail)
-            pick = lambda a: a.index_select(0, ls.alpha_idx.reshape(1))[0]
-            x_new = torch.where(accept, pick(ro.x), x)
-            u_new = torch.where(accept, pick(ro.u), u)
-            d_new = torch.where(accept, pick(ro.d), d)
-
-            drho_acc = torch.clamp(bp.drho / f, max=1.0 / f)
-            rho_acc = torch.clamp(bp.rho * drho_acc, min=cfg.rho_min)
-            drho_rej = torch.clamp(bp.drho * f, min=f)
-            rho_rej = torch.clamp(bp.rho * drho_rej, max=cfg.rho_max)
-            rho_new = torch.where(accept, rho_acc, rho_rej)
-            drho = torch.where(accept, drho_acc, drho_rej)
-
-            dJ_frac = ls.dJ / prevJ
-            J_trace[it] = torch.where(accept, ls.J, prevJ)
-            alpha_trace[it] = torch.where(accept, ls.alpha_idx, -1)
-            defect_trace[it] = d_new.abs().sum(-1).amax()
-
-            # "converged": an accepted step improved by less than tol, or a
-            # rejected step where even the best candidate had nothing to gain
-            converged = torch.where(accept, dJ_frac < cfg.tol_cost,
-                                    ls.best_dJ_frac.abs() < cfg.tol_cost)
-            done = torch.logical_and(accept, dJ_frac < cfg.tol_cost)
-            if not cfg.ignore_max_rho_exit:
-                done = done | (~accept & (rho_new >= cfg.rho_max))
-            done = done | bp.fail
-
-            prevJ = torch.where(accept, ls.J, prevJ)
-            max_defect = torch.where(accept, ls.max_defect, max_defect)
-            ignore_defect, feasible = ls.ignore_defect, ls.any_feasible
-            xp2, xp = xp, x_new
-            x, u, d = x_new, u_new, d_new
-            Pp, pp = P, p = bp.P, bp.p
-            K, du = bp.K, bp.du
-            rho = rho_new
-            if it >= it_cap:      # the budget ends the solve: no sync needed
-                break
-            # NEXT ITERATION SETUP (runs on accept or reject, like the
-            # reference's nextIterationSetupGPU), then the exit test
-            AB, H, g = _derivatives(cfg, self.step_jac, cost.quad, x, u, goal, w)
-            syncs += 1
-            if bool(done):
-                break
-            it += 1
-        self.host_syncs = syncs
-
-        return SolveOutput(
-            x=x, u=u, K=K, d=d, P=P, p=p, J=prevJ, iters=it,
-            J_trace=J_trace, alpha_trace=alpha_trace, rho=rho,
-            max_defect=max_defect, converged=converged, last_feasible=feasible,
-            defect_trace=defect_trace,
+        return _Carry(
+            x=x, u=u, d=d, xp2=x.clone(),
+            P=P0.clone() if P0 is not None else zeros(N, n, n),
+            p=p0.clone() if p0 is not None else zeros(N, n),
+            K=zeros(N, m, n), du=zeros(N, m),
+            # epsilon bump so a zero first update does not instantly
+            # "converge" (initAlgGPU, nisInitHelpers.cuh:392-395)
+            prevJ=J0 + 2.0 * cfg.tol_cost,
+            rho=full(cfg.rho_init), drho=full(1.0),
+            ignore_defect=full(bool(ignore_first_defect), torch.bool),
+            it=full(1, torch.int32), done=full(False, torch.bool),
+            converged=full(False, torch.bool), feasible=full(True, torch.bool),
+            J_trace=J_trace, alpha_trace=alpha_trace, defect_trace=defect_trace,
+            max_defect=full(0.0),
         )
+
+    def _iteration(self, c: _Carry, goal, w, cap) -> int:
+        """One iteration, every field of c committed under
+        active = ~done & (it <= cap): run past the end of a solve it changes
+        nothing.  Returns the host reads made (the rho retry's, on the CPU)."""
+        cfg, cost = self.cfg, self.cost
+        active = torch.logical_and(~c.done, c.it <= cap)
+
+        def stage(xk, uk, k):
+            return cost.stage(xk, uk, k, goal, w)
+
+        # derivatives at the accepted trajectory (nextIterationSetupGPU,
+        # which runs on accept or reject)
+        AB, H, g = _derivatives(cfg, self.step_jac, cost.quad, c.x, c.u, goal, w)
+
+        # BACKWARD PASS (with rho retry) ---------------------------------------
+        bp = backward_pass(cfg, AB, H, g, c.P, c.p, c.d, c.x, c.xp2, c.rho, c.drho)
+
+        # FORWARD PASS ----------------------------------------------------------
+        alphas = self.alphas(c.x.device, c.x.dtype)
+        ro = forward_pass(cfg, self.step_fn, stage, c.x, c.u, c.d, bp.K, bp.du,
+                          bp.ApBK, bp.Bdu, c.x, alphas, fused_sim=self.fused_sim)
+        ls = line_search(cfg, ro.J, ro.max_defect, alphas, bp.dJexp, c.prevJ,
+                         c.ignore_defect)
+
+        # ACCEPT / REJECT + rho schedule (acceptRejectTrajGPU,
+        # nisInitHelpers.cuh:487-518) ---------------------------------------------
+        accept = torch.logical_and(ls.accept, ~bp.fail)
+        take = torch.logical_and(active, accept)
+        pick = lambda a: a.index_select(0, ls.alpha_idx.reshape(1))[0]
+        f = cfg.rho_factor
+        drho_acc = torch.clamp(bp.drho / f, max=1.0 / f)
+        rho_acc = torch.clamp(bp.rho * drho_acc, min=cfg.rho_min)
+        drho_rej = torch.clamp(bp.drho * f, min=f)
+        rho_rej = torch.clamp(bp.rho * drho_rej, max=cfg.rho_max)
+        rho_new = torch.where(accept, rho_acc, rho_rej)
+        dJ_frac = ls.dJ / c.prevJ
+
+        # "converged": an accepted step improved by less than tol, or a
+        # rejected step where even the best candidate had nothing to gain
+        converged = torch.where(accept, dJ_frac < cfg.tol_cost,
+                                ls.best_dJ_frac.abs() < cfg.tol_cost)
+        done = torch.logical_and(accept, dJ_frac < cfg.tol_cost)
+        if not cfg.ignore_max_rho_exit:
+            done = done | (~accept & (rho_new >= cfg.rho_max))
+        done = done | bp.fail
+
+        c.record("J_trace", active, torch.where(accept, ls.J, c.prevJ))
+        c.record("alpha_trace", active, torch.where(accept, ls.alpha_idx, -1))
+        c.record("defect_trace", active,
+                 torch.where(accept, pick(ro.d), c.d).abs().sum(-1).amax())
+        c.commit("xp2", active, c.x)
+        c.commit("x", take, pick(ro.x))
+        c.commit("u", take, pick(ro.u))
+        c.commit("d", take, pick(ro.d))
+        for name in ("P", "p", "K", "du"):
+            c.commit(name, active, getattr(bp, name))
+        c.commit("prevJ", take, ls.J)
+        c.commit("max_defect", take, ls.max_defect)
+        c.commit("rho", active, rho_new)
+        c.commit("drho", active, torch.where(accept, drho_acc, drho_rej))
+        c.commit("ignore_defect", active, ls.ignore_defect)
+        c.commit("feasible", active, ls.any_feasible)
+        c.commit("converged", active, converged)
+        c.commit("done", active, done)
+        c.it.add_(active.to(torch.int32))
+        return bp.host_syncs
 
 
 def make_ilqr_solver(plant: Plant, cost: CostModel, cfg: SolverConfig) -> _Solver:

@@ -36,9 +36,9 @@ def _f32(rng, shape, scale, dev):
 def test_rbd_jac_kernel(dev):
     rng = np.random.default_rng(0)
     x, u = _f32(rng, (37, 14), 0.5, dev), _f32(rng, (37, 7), 2.0, dev)
-    before = cuda_rbd.kuka_jac_qdd_cuda.launches
+    before = cuda_rbd.kuka_jac_qdd_cuda.counter.launches
     jac, qdd = cuda_rbd.kuka_jac_qdd(x, u, 1, 9.81)
-    assert cuda_rbd.kuka_jac_qdd_cuda.launches == before + 1
+    assert cuda_rbd.kuka_jac_qdd_cuda.counter.launches == before + 1
     ref_jac, ref_qdd = cuda_rbd.kuka_jac_qdd_plain(x, u, 1, 9.81)
     scale = float(ref_jac.abs().max())
     torch.testing.assert_close(jac, ref_jac, rtol=1e-3, atol=1e-4 * scale)
@@ -49,9 +49,9 @@ def test_rbd_jac_kernel(dev):
 def test_qdd_kernel(dev, batch):
     rng = np.random.default_rng(batch)
     x, u = _f32(rng, (batch, 14), 0.5, dev), _f32(rng, (batch, 7), 2.0, dev)
-    before = cuda_rbd.kuka_qdd_cuda.launches
+    before = cuda_rbd.kuka_qdd_cuda.counter.launches
     qdd = cuda_rbd.kuka_qdd(x, u, 1, 9.81)
-    assert cuda_rbd.kuka_qdd_cuda.launches == before + 1
+    assert cuda_rbd.kuka_qdd_cuda.counter.launches == before + 1
     ref = cuda_rbd.kuka_qdd_plain(x, u, 1, 9.81)
     torch.testing.assert_close(qdd, ref, rtol=1e-4, atol=1e-5 * float(ref.abs().max()))
     # leading dims, as the plant step on one sample calls it
@@ -97,9 +97,9 @@ def test_euler_ab_epilogue_is_the_composer_bit_for_bit(dev, batch):
     rng = np.random.default_rng(7 + batch)
     dt = 0.5 / 63
     x, u = _f32(rng, (batch, 14), 0.5, dev), _f32(rng, (batch, 7), 2.0, dev)
-    before = cuda_rbd.kuka_jac_qdd_cuda.launches
+    before = cuda_rbd.kuka_jac_qdd_cuda.counter.launches
     ab = cuda_rbd.make_kuka_ab(1, 0.0, 1, dt)(x, u)
-    assert cuda_rbd.kuka_jac_qdd_cuda.launches == before + 1
+    assert cuda_rbd.kuka_jac_qdd_cuda.counter.launches == before + 1
     assert ab.shape == (batch, 14, 21)
     jac, _ = cuda_rbd.kuka_jac_qdd_cuda(x, u, 1, 0.0)
 
@@ -111,9 +111,9 @@ def test_euler_ab_epilogue_is_the_composer_bit_for_bit(dev, batch):
     composed = cuda_rbd.make_ab_composer(None, lifted, 1, dt, 14, 7)(x, u)
     assert torch.equal(ab, composed)
     # Midpoint and RK3 still go through the composer, one launch a stage
-    before = cuda_rbd.kuka_jac_qdd_cuda.launches
+    before = cuda_rbd.kuka_jac_qdd_cuda.counter.launches
     ab3 = cuda_rbd.make_kuka_ab(1, 0.0, 3, dt)(x, u)
-    assert cuda_rbd.kuka_jac_qdd_cuda.launches == before + 3 and ab3.shape == (batch, 14, 21)
+    assert cuda_rbd.kuka_jac_qdd_cuda.counter.launches == before + 3 and ab3.shape == (batch, 14, 21)
 
 
 def _rollout_inputs(rng, A, M, nf, dev):
@@ -137,14 +137,14 @@ def test_rollout_group_kernel_lanes(dev, A, M, nf, integrator):
     mask = torch.zeros((M, nf), dtype=torch.bool)
     mask[-1, -1] = True
     mask[0, nf // 2] = True
-    before = cuda_rollout.kuka_rollout_cuda.launches
+    before = cuda_rollout.kuka_rollout_cuda.counter.launches
     for skip in (None, mask):
         got = fused(*args, skip_mask=None if skip is None else skip.to(dev))
         ref = fused(*[a.cpu() for a in args], skip_mask=skip)
         assert got[0].shape == (A, M, nf, 14) and got[1].shape == (A, M, nf, 7)
         for g, r in zip(got, ref):
             torch.testing.assert_close(g.cpu(), r, rtol=1e-4, atol=1e-5 * max(float(r.abs().max()), 1.0))
-    assert cuda_rollout.kuka_rollout_cuda.launches == before + 2
+    assert cuda_rollout.kuka_rollout_cuda.counter.launches == before + 2
 
 
 @pytest.mark.parametrize("integrator", [1, 2, 3])
@@ -179,9 +179,9 @@ def test_sim_chain_open_loop_kernel(dev, integrator, lead, steps):
     dt = 0.5 / 63
     x0, u = _f32(rng, lead + (14,), 0.3, dev), _f32(rng, lead + (steps, 7), 1.0, dev)
     chain = cuda_sim_chain.make_kuka_sim_chain(1, 0.0, integrator, dt)
-    before = cuda_sim_chain.kuka_open_loop_cuda.launches
+    before = cuda_sim_chain.kuka_open_loop_cuda.counter.launches
     got = chain.open_loop(x0, u)
-    assert cuda_sim_chain.kuka_open_loop_cuda.launches == before + 1
+    assert cuda_sim_chain.kuka_open_loop_cuda.counter.launches == before + 1
     assert got.shape == lead + (steps, 14)
     ref = chain.open_loop(x0.cpu(), u.cpu())
     torch.testing.assert_close(got.cpu(), ref, rtol=1e-5, atol=2e-6 * max(float(ref.abs().max()), 1.0))
@@ -202,9 +202,9 @@ def test_sim_chain_runner_kernel(dev, t0, t, feedback):
     x = _f32(rng, (14,), 0.3, dev)
     clocks = torch.tensor(t0, device=dev), torch.tensor(t, device=dev)
     chain = cuda_sim_chain.make_kuka_sim_chain(1, 0.0, 1, sim_dt)
-    before = cuda_sim_chain.kuka_runner_cuda.launches
+    before = cuda_sim_chain.kuka_runner_cuda.counter.launches
     got_x, got_t = chain.runner(*plan, clocks[0], dt, clocks[1], x, 10, feedback)
-    assert cuda_sim_chain.kuka_runner_cuda.launches == before + 1
+    assert cuda_sim_chain.kuka_runner_cuda.counter.launches == before + 1
     ref_x, ref_t = chain.runner(*(a.cpu() for a in plan), clocks[0].cpu(), dt, clocks[1].cpu(),
                                 x.cpu(), 10, feedback)
     assert got_x.shape == (10, 14) and got_t.dim() == 0 and got_t.device == dev
@@ -239,10 +239,10 @@ def test_riccati_kernel_bodies_and_ring(dev, n, m, lanes, steps, rho_lane):
     args = (rho, sP, _f32(rng, (Mb, n), 0.5, dev), _f32(rng, (Mb, Nb, n, nm), 0.3, dev), H,
             _f32(rng, (Mb, Nb, nm), 0.5, dev), _f32(rng, (Mb, Nb, n), 0.1, dev),
             torch.arange(N, device=dev).reshape(Mb, Nb))
-    before = cuda_riccati.riccati_cuda.launches
+    before = cuda_riccati.riccati_cuda.counter.launches
     got = cuda_riccati.riccati_cuda(*args, nf=N - 1, n_blocks_f=cfg.n_blocks_f,
                                     state_reg=cfg.state_reg, use_defect=True)
-    assert cuda_riccati.riccati_cuda.launches == before + 1
+    assert cuda_riccati.riccati_cuda.counter.launches == before + 1
     ref = cuda_riccati.make_riccati_block_call(cfg, n, m)(*[a.cpu() for a in args])
     assert not bool(got[7]) and not bool(ref[7]) and got[7].dtype == torch.bool
     for g, r in zip(got[:7], ref[:7]):
@@ -297,3 +297,167 @@ def test_solver_refuses_tf32(dev):
                    ee_goal([0.3, -0.3, 0.9], device=dev), initial_rollout=True)
     finally:
         torch.backends.cuda.matmul.allow_tf32 = old
+
+
+# --- the graph route: solve, MPC step and closed loop as CUDA-graph replays
+
+def _small_problem(max_iter=6):
+    from parallel_ddp_tpu_torch.presets import kuka_ee
+
+    prob = kuka_ee(num_time_steps=16, m_blocks=2, num_alpha=4)
+    return prob, dataclasses.replace(prob.cfg, max_iter=max_iter, pallas_riccati=True)
+
+
+def _assert_same_decisions(gpu, cpu):
+    """The same alphas, and J within 1e-3 (float32 rounding of two summation
+    orders; chip_smoke.py's SOLVE_RTOL)."""
+    it = int(cpu.iters)
+    assert int(gpu.iters) == it
+    assert torch.equal(gpu.alpha_trace.cpu()[: it + 1], cpu.alpha_trace[: it + 1])
+    torch.testing.assert_close(gpu.J_trace.cpu()[: it + 1], cpu.J_trace[: it + 1],
+                               rtol=1e-3, atol=0)
+
+
+def _assert_same_run(graphed, eager):
+    """A replay against the same body run eagerly on the card: the same
+    kernels on the same inputs, so the same decisions and, but for cuBLAS
+    choosing another algorithm under capture, the same numbers (rtol 1e-5)."""
+    assert int(graphed.iters) == int(eager.iters)
+    assert torch.equal(graphed.alpha_trace, eager.alpha_trace)
+    for a, b in zip(graphed, eager):
+        if isinstance(a, torch.Tensor) and a.is_floating_point():
+            torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6, equal_nan=True)
+
+
+def test_replayed_solve_matches_cpu_and_takes_new_inputs(dev):
+    """A cold solve replayed on the card takes the CPU's decisions; warm
+    replays with a new goal, iter_limit or cost weights match the same solve
+    run eagerly on the card (the body's host loop), a new goal or iter_limit
+    with no new capture, new weights with one; the launch counters count
+    replays."""
+    from parallel_ddp_tpu_torch.config import CostWeights
+    from parallel_ddp_tpu_torch.presets import ee_goal
+    from parallel_ddp_tpu_torch.solver import make_ilqr_solver
+
+    prob, cfg = _small_problem()
+    gpu_solver = make_ilqr_solver(prob.plant, prob.cost, cfg)
+    cpu_solver = make_ilqr_solver(prob.plant, prob.cost, cfg)
+    x0, u0 = torch.zeros(16, 14), torch.zeros(16, 7)
+    goals = [ee_goal(g, device=dev) for g in ((0.3, -0.3, 0.9), (0.35, -0.25, 0.85))]
+    cold = gpu_solver(x0.to(dev), u0.to(dev), goals[0], initial_rollout=True)
+    _assert_same_decisions(cold, cpu_solver(x0, u0, {k: v.cpu() for k, v in goals[0].items()},
+                                            initial_rollout=True))
+    for goal, limit, w in ((goals[1], None, None), (goals[0], 2, None),
+                           (goals[1], None, CostWeights(r_ee=1e-3))):
+        gpu = gpu_solver(cold.x, cold.u, goal, w, P0=cold.P, p0=cold.p, d0=cold.d,
+                         iter_limit=limit)
+        assert gpu_solver.host_syncs == 0
+        eager, reads = gpu_solver.run(cold.x, cold.u, goal, cold.P, cold.p, cold.d,
+                                      limit or cfg.max_iter, w or CostWeights(), False, False)
+        assert reads > 0
+        _assert_same_run(gpu, eager)
+        assert int(gpu.iters) == (limit or cfg.max_iter)
+    assert len(gpu_solver.graphs) == 3                  # cold, warm, warm with new weights
+    counters = (cuda_rbd.kuka_jac_qdd_cuda.counter, cuda_rollout.kuka_rollout_cuda.counter,
+                cuda_riccati.riccati_cuda.counter)
+    for c in counters:
+        c.reset()
+    out = gpu_solver(cold.x, cold.u, goals[1], P0=cold.P, p0=cold.p, d0=cold.d, iter_limit=3)
+    iters = int(out.iters)
+    assert iters == 3
+    jac, roll, ric = (c.launches for c in counters)
+    assert jac == roll == iters and ric >= iters      # one rho attempt or more an iteration
+
+
+def test_replayed_outputs_are_not_overwritten(dev):
+    from parallel_ddp_tpu_torch.presets import ee_goal
+    from parallel_ddp_tpu_torch.solver import make_ilqr_solver
+
+    prob, cfg = _small_problem(3)
+    solver = make_ilqr_solver(prob.plant, prob.cost, cfg)
+    x0, u0 = torch.zeros(16, 14, device=dev), torch.zeros(16, 7, device=dev)
+    first = solver(x0, u0, ee_goal((0.3, -0.3, 0.9), device=dev), initial_rollout=True)
+    kept = [t.clone() for t in first if isinstance(t, torch.Tensor)]
+    second = solver(x0, u0, ee_goal((0.2, 0.3, 0.7), device=dev), initial_rollout=True)
+    assert not torch.equal(first.x, second.x)
+    for a, b in zip([t for t in first if isinstance(t, torch.Tensor)], kept):
+        assert torch.equal(a, b)
+
+
+def test_replayed_mpc_step_and_loop(dev, monkeypatch):
+    """An MPC step and three closed-loop control steps replayed on the card
+    match the same steps run eagerly on the card (the host-loop route); the
+    MPC step takes the CPU's accept decision with J within 1e-3, the loop the
+    CPU's accepts with the EE error within 1e-4 m; under torch's sync debug
+    mode "error" a warm solve, an MPC step and ten control steps raise
+    nothing."""
+    from parallel_ddp_tpu_torch import graphs
+    from parallel_ddp_tpu_torch.mpc.device_loop import make_device_mpc_loop
+    from parallel_ddp_tpu_torch.mpc.driver import MPCConfig, MPCController, MPCState
+    from parallel_ddp_tpu_torch.presets import ee_goal, fig8_weights
+    from parallel_ddp_tpu_torch.solver import make_ilqr_solver
+
+    prob, cfg = _small_problem()
+    w = fig8_weights()
+    x_init = torch.zeros(14)
+    x_init[1], x_init[3], x_init[5] = np.pi / 4, -np.pi / 4, np.pi / 4
+    goal = ee_goal((0.0, -0.55, 0.35), x_target=x_init.numpy(), device="cpu")
+    goals = {k: torch.stack([v] * 10) for k, v in goal.items()}
+    goals["ee_goal"] = goals["ee_goal"] + torch.linspace(0, 0.05, 10)[:, None]
+    on = lambda g: {k: v.to(dev) for k, v in g.items()}
+    ctrl = MPCController(prob.plant, prob.cost, cfg, MPCConfig(max_iters_per_solve=3))
+    run = make_device_mpc_loop(ctrl, sim_rate_hz=200.0, control_period_s=0.02)
+    st_cpu = ctrl.init_state(x_init, goal=goal, weights=w, warmup_iters=6)
+    st = MPCState(*(a.to(dev) for a in st_cpu))
+    x_dev, t_dev = x_init.to(dev), torch.full((), 0.01, device=dev)
+    three = {k: v[:3] for k, v in goals.items()}
+    step = ctrl.step(st, x_dev, t_dev, on(goal), w)
+    loop = run(st, x_dev, 0.0, on(three), w)
+    assert loop.host_syncs == 0 and ctrl.host_syncs == 0
+    with monkeypatch.context() as m:          # the same bodies run eagerly on the card
+        m.setattr(graphs, "replayed", lambda device: False)
+        eager_step = ctrl.step(st, x_dev, t_dev, on(goal), w)
+        eager_loop = run(st, x_dev, 0.0, on(three), w)
+    assert eager_loop.host_syncs > 0
+    for a, b in zip(step[0] + step[1], eager_step[0] + eager_step[1]):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
+    for a, b in zip(loop[:5] + tuple(loop.state), eager_loop[:5] + tuple(eager_loop.state)):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
+    cpu_step = ctrl.step(st_cpu, x_init, t_dev.cpu(), goal, w)
+    assert bool(step[1].accepted) == bool(cpu_step[1].accepted)
+    torch.testing.assert_close(step[1].J.cpu(), cpu_step[1].J, rtol=1e-3, atol=0)
+    # three closed-loop steps: the plant states the two take their later
+    # solves from part by rounding, so J is held on the first step only
+    cpu = run(st_cpu, x_init, 0.0, three, w)
+    assert torch.equal(loop.accepted.cpu(), cpu.accepted)
+    torch.testing.assert_close(loop.ee_err.cpu(), cpu.ee_err, rtol=0, atol=1e-4)
+    torch.testing.assert_close(loop.J.cpu()[0], cpu.J[0], rtol=1e-3, atol=0)
+
+    solver = make_ilqr_solver(prob.plant, prob.cost, cfg)
+    args, kw = (st.x, st.u, on(goal)), dict(P0=st.P, p0=st.p, d0=st.d)
+    solver(*args, **kw)
+    run(st, x_dev, t_dev, on(goals), w)        # captures before the checked calls
+    goals_dev, goal_dev = on(goals), on(goal)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        solver(*args, **kw)
+        ctrl.step(st, x_dev, t_dev, goal_dev, w)
+        run(st, x_dev, t_dev, goals_dev, w)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+
+
+def test_capture_failure_raises(dev):
+    """A body that reads a device value on the host cannot be captured: the
+    capture raises with the CUDA error, nothing runs it eagerly."""
+    from parallel_ddp_tpu_torch import graphs
+
+    def body(x):
+        if bool(x.sum() > 0):          # a host read: illegal under capture
+            x.add_(1.0)
+        return x
+
+    with pytest.raises(RuntimeError):
+        graphs.Captured(body, (torch.ones(3, device=dev),), "host read")

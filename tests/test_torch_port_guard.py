@@ -46,7 +46,7 @@ def test_port_has_modules():
                      "ops/cuda_rollout.py", "ops/cuda_riccati.py", "ops/build.py",
                      "parallel/backward.py", "parallel/forward.py", "costs/ee.py",
                      "mpc/controls.py", "mpc/driver.py", "mpc/device_loop.py",
-                     "mpc/simulator.py", "ops/cuda_sim_chain.py", "device.py"):
+                     "mpc/simulator.py", "ops/cuda_sim_chain.py", "device.py", "graphs.py"):
         assert expected in names
 
 

@@ -195,7 +195,7 @@ def test_no_fallback_off_cpu():
         cuda_rbd.make_kuka_ab(1, 0.0, 1, 0.01)(x, u)
     with pytest.raises(ValueError, match="CUDA"):
         cuda_rbd.kuka_euler_ab_cuda(torch.zeros(4, 14), torch.zeros(4, 7), 0.01)
-    assert cuda_rbd.kuka_jac_qdd_cuda.launches == 0
+    assert cuda_rbd.kuka_jac_qdd_cuda.counter.launches == 0
 
 
 def test_plant_hook_is_batched_and_generic():
@@ -246,4 +246,4 @@ def test_qdd_kernel_path_refuses():
         cuda_rbd.kuka_qdd_cuda(torch.zeros(2, 14, requires_grad=True), torch.zeros(2, 7))
     with pytest.raises(ValueError, match="leading dims"):
         cuda_rbd.kuka_qdd_cuda(torch.zeros(2, 14), torch.zeros(3, 7))
-    assert cuda_rbd.kuka_qdd_cuda.launches == 0
+    assert cuda_rbd.kuka_qdd_cuda.counter.launches == 0

@@ -145,4 +145,4 @@ def test_fused_op_refuses_what_it_cannot_take():
     with pytest.raises(ValueError, match="CUDA"):                 # rho per lane
         bp(torch.zeros(4, device="meta"), *args[1:],
            torch.zeros((4, 4), dtype=torch.int32, device="meta"))
-    assert cuda_riccati.riccati_cuda.launches == 0
+    assert cuda_riccati.riccati_cuda.counter.launches == 0

@@ -108,7 +108,7 @@ def test_kernel_path_refuses_without_a_card():
             torch.zeros((1, n_long), dtype=torch.uint8)]
     with pytest.raises(ValueError, match="steps a shooting block"):
         cuda_rollout.kuka_rollout_cuda(*long, **dict(kw, m_blocks=1))
-    assert cuda_rollout.kuka_rollout_cuda.launches == 0
+    assert cuda_rollout.kuka_rollout_cuda.counter.launches == 0
 
 
 def test_factory_refuses_bad_shapes():
@@ -121,4 +121,4 @@ def test_factory_refuses_bad_shapes():
     meta = [t.to("meta") for t in (x_sw, u, K, du, xp, al)]
     with pytest.raises(ValueError, match="CUDA"):
         fused(*meta)                                              # never the plain version
-    assert cuda_rollout.kuka_rollout_cuda.launches == 0
+    assert cuda_rollout.kuka_rollout_cuda.counter.launches == 0

@@ -225,5 +225,5 @@ def test_chain_edge_cases_and_refusals():
     # a tensor that is neither on the CPU nor on a card never reaches the plain version
     with pytest.raises(ValueError, match="CUDA"):
         chain.open_loop(meta(14), meta(5, 7))
-    assert cuda_sim_chain.kuka_open_loop_cuda.launches == 0
-    assert cuda_sim_chain.kuka_runner_cuda.launches == 0
+    assert cuda_sim_chain.kuka_open_loop_cuda.counter.launches == 0
+    assert cuda_sim_chain.kuka_runner_cuda.counter.launches == 0
