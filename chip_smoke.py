@@ -61,11 +61,36 @@ Phases (each prints one line; any failure exits non-zero):
                the mean time of a graph node; then one torch.profiler run of
                each: kernels run on the card, graph launches, stream syncs,
                device time and busy share as the profiler sees them.
-  8. graphs  — every graph captured: seconds to capture and instantiate,
+  8. batched — scenario batching (parallel/sharding.py, the fleet MPC step):
+               the batched rollout and Riccati kernels at B = 256 against
+               their plain versions and, bit for bit, against one launch per
+               scenario for scenarios 0, 1, 128 and 255; those two and the
+               Jacobian kernel timed at B = 256, 1024 and 4096 beside the
+               roofline bound of each B; the Jacobian (and Euler AB) and
+               chain kernels at each B's flattened sizes against their plain
+               versions; a batched WAFR solve at B = 256 (scenario b's goal
+               the figure-8 at 10 s * b / B, from the cold solve's
+               trajectory, the config's own tol_cost, at most 40 iterations)
+               against the sampled scenarios solved alone (J traces within
+               a one-ulp rounding envelope; B copies of a scenario and a
+               batch of 1 bit for bit), with 0 host reads and 0 sync-debug
+               syncs; the launches of a batched
+               6-iteration solve, which must not depend on B; batched
+               solves/s at B = 256, 1024 and 4096 (tol_cost = 0, CUDA events
+               around 10 replays) with each graph's nodes, pool and capture
+               time and the stream's busy share, and the stages of one
+               batched iteration at B = 1024; `init_state_batch` and
+               `step_batch` at B = 256 from the settled fig-8 state (scenario
+               0 against a single step; 0 host syncs); the fig-8 control step
+               replayed with changed weights (no new capture, a new J); and a
+               B = 2 batch from the solve phase's cold start on CPU tensors
+               against the card, and on the fig-8 inputs beside a single
+               solve's GPU-to-CPU gap.
+  9. graphs  — every graph captured: seconds to capture and instantiate,
                nodes (WHILE bodies included) and the bytes its memory pool
                holds.
 Then one JSON line with every kernel's numbers, the card line, and last
-{"ok": true, "device": {...}}.  Takes 2 to 3 minutes on an H100.
+{"ok": true, "device": {...}}.  Takes 3 to 4 minutes on an H100.
 `python3 chip_smoke.py --kernels-only` stops after phase 3 and prints no
 result line: a short run while working on a kernel.
 
@@ -134,12 +159,39 @@ FIG8_CPU_STEPS = 3
 FIG8_ERR_ATOL = 1e-4
 # forward-dynamics-family launches (qdd + chain) allowed per control step
 FIG8_QDD_FAMILY_MAX = 3
+# scenario batching: the batch the checks run at, the scenarios held against
+# their own launches and solves, the batches timed, replays a timing
+BATCH_CHECK = 256
+BATCH_SAMPLES = (0, 1, 128, 255)
+BATCH_SIZES = (256, 1024, 4096)
+BATCH_TIMED = 10
+BATCH_STAGES = 1024           # the batch whose iteration is timed stage by stage
+# the correctness batch's iteration cap: the batched body's glue (cost H/g,
+# sweep, sums) runs at another batch size than a single solve's, so its
+# float32 rounding differs and a long solve's near-tie alphas part (measured:
+# scenario 0 at iteration 67 of 100); a cut of depth, the tol_cost is the
+# config's own
+BATCH_CHECK_ITERS = 40
+BATCH_CPU_ITERS = 3           # the B = 2 batch held against CPU tensors: its cap
+# a sampled scenario's J trace against its single solve, iteration by
+# iteration: within J_TRACE_FACTOR x the running largest gap that a one-ulp
+# move of the initial controls makes along the single solve's own trace (the
+# rounding envelope), and never held tighter than J_TRACE_FLOOR (measured on
+# an H100: at most 2.29 x, the same in two runs)
+J_TRACE_FACTOR = 10.0
+J_TRACE_FLOOR = 1e-6
+# the B = 2 batch on the fig-8 inputs: its GPU-to-CPU gap at most this many
+# times a single solve's on the same scenario, iteration by iteration
+# (measured: 1.8e-3 and 1.7e-3 after 3 iterations on an H100)
+FIG8_OWN_GAP = 2.0
+GAP_AT = (0, 1, 2, 3, 5, 10, 20, 30, 40)   # the iterations a gap is printed at
 # the paths driven, each with the launch counters zeroed just before it and
 # read just after, and the kernels each must launch
 PATH_KERNELS = {
     "wafr_solve": ("rbd_jac", "rollout", "riccati", "sim_chain"),
     "fig8": ("rbd_jac", "rollout", "riccati", "sim_chain"),
     "fig8_block_rerollout": ("rbd_jac", "rollout", "riccati", "qdd", "sim_chain"),
+    "wafr_batched": ("rbd_jac", "rollout", "riccati", "sim_chain"),
 }
 # the path whose count is a kernel's `launches` in the kernels line: the fig-8
 # closed loop, and for the kernel it does not run, the block re-rollout loop
@@ -348,6 +400,32 @@ def compare(name, got, ref):
         scale = float(r.abs().max())
         ok = ok and bool((diff <= rtol * r.abs() + atol * max(scale, 1.0)).all())
     return err, ok
+
+
+def bits(t):
+    """t's bits (a float tensor viewed as integers: NaN equals NaN)."""
+    import torch
+
+    return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+
+def trace_gap(got, ref, it):
+    """|got - ref| / |ref| along two J traces, iterations 0..it (numpy)."""
+    import numpy as np
+
+    g, r = (t[:it + 1].double().cpu().numpy() for t in (got, ref))
+    return np.abs(g - r) / np.abs(r)
+
+
+def first_difference(got, ref, it):
+    """The first iteration <= it where two alpha traces differ, else None."""
+    diff = (got[:it + 1] != ref[:it + 1]).nonzero()
+    return int(diff[0, 0]) if len(diff) else None
+
+
+def at_iters(gap):
+    """The gaps at the iterations of GAP_AT that the trace reaches."""
+    return "[" + ", ".join(f"{i}: {gap[i]:.1e}" for i in GAP_AT if i < len(gap)) + "]"
 
 
 def kernel_phase(torch, np, dev):
@@ -677,7 +755,8 @@ def solve_phase(torch, np, dev):
     print(f"solve: GPU (graph replay) and CPU (host loop) cold and warm traces agree (same "
           f"alphas, J within rtol {SOLVE_RTOL}); host reads of a GPU solve {solver.host_syncs}, "
           f"of the CPU's warm solve {cpu_solver.host_syncs}", flush=True)
-    return solver, outs[0], goals_dev[1], launches
+    canon = dict(x0=x0_dev, u0=u0_dev, goals=goals_dev[:2])
+    return solver, outs[0], goals_dev[1], launches, canon
 
 
 def timing_phase(torch, np, dev, solver, cold, goal):
@@ -958,8 +1037,461 @@ def fig8_phase(torch, np, dev, card):
 
     caches = {"fig-8 cold start": ctrl._warmup_solver(50).graphs, "fig-8 MPC step": ctrl.graphs,
               "fig-8 loop": run.graphs, "block re-rollout loop": run_blk.graphs}
+    fleet = dict(ctrl=ctrl, run=run, settled=settled, w=w, x_init=x_init, goals_track=goals_track)
     return ({"fig8": fig8_counts, "fig8_block_rerollout": blk_counts}, control_step, runner,
-            per_step, caches)
+            per_step, caches, fleet)
+
+
+def batch_goals(torch, np, B, x_init, dev):
+    """Scenario b's goal: the figure-8 at 10 s * b / B, as the goal dict with a
+    leading B (x_target x_init, or zeros for None)."""
+    from parallel_ddp_tpu_torch.presets import figure8_goal
+
+    xyz = np.stack([figure8_goal(FIG8_TRACK_S * b / B, FIG8_TRACK_S)[0] for b in range(B)])
+    ee = np.concatenate([xyz, np.zeros_like(xyz)], axis=1).astype(np.float32)
+    xt = np.zeros((B, 14), np.float32) if x_init is None else np.tile(x_init, (B, 1))
+    return {"ee_goal": torch.as_tensor(ee, device=dev), "x_target": torch.as_tensor(xt, device=dev)}
+
+
+def batched_kernel_checks(torch, np, dev, kernels):
+    """The rollout and Riccati kernels with a scenario axis at the WAFR shapes:
+    at B = BATCH_CHECK against their plain versions (CPU tensors) and, bit for
+    bit, against one launch per sampled scenario; timed at every B of
+    BATCH_SIZES beside the roofline bound of that B.  The Jacobian and chain
+    kernels at the flattened sample counts of every B, against their plain
+    versions."""
+    from parallel_ddp_tpu_torch.config import SolverConfig
+    from parallel_ddp_tpu_torch.ops import cuda_rbd, cuda_riccati, cuda_rollout, cuda_sim_chain
+
+    N, M, A, nx, nu = 64, 4, 16, 14, 7
+    nf, nm = N // M, nx + nu
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1)
+    rand = lambda *shape, s: torch.randn(shape, generator=gen, device=dev) * s
+    cfg = SolverConfig(num_time_steps=N, m_blocks_b=M, m_blocks_f=M, num_alpha=A)
+    alphas = torch.as_tensor(cfg.alphas(), device=dev)
+    skip = torch.zeros((M, nf), dtype=torch.uint8, device=dev)
+    skip[-1, -1] = 1                          # k = N-1
+    ro_kw = dict(ee_type=1, gravity=0.0, integrator=1, dt=0.5 / (N - 1), m_blocks=M)
+    bp = cuda_riccati.make_riccati_block_call(cfg, nx, nu)
+    step = cuda_riccati.make_riccati_step(cfg, nx, nu)
+
+    def rollout_inputs(B):
+        return (rand(B, A, N, nx, s=0.3), rand(B, N, nu, s=1.0), rand(B, N, nu, nx, s=0.05),
+                rand(B, N, nu, s=0.5), rand(B, N, nx, s=0.3), alphas, skip)
+
+    def riccati_inputs(B):
+        C = rand(B, M, nf, nm, nm, s=0.3)
+        Cp = rand(B, M, nx, nx, s=0.3)
+        AB = rand(B, M, nf, nx, nm, s=0.3)
+        AB[:, -1, -1] = 0.0                   # the padded row of k = N-1
+        rho = torch.rand(B, generator=gen, device=dev) * 1.8 + 0.2
+        return (rho, Cp @ Cp.mT + torch.eye(nx, device=dev), rand(B, M, nx, s=0.5), AB,
+                C @ C.mT + torch.eye(nm, device=dev), rand(B, M, nf, nm, s=0.5),
+                rand(B, M, nf, nx, s=0.1), torch.arange(N, device=dev).reshape(M, nf))
+
+    cases = {
+        "rollout": (rollout_inputs, lambda a: cuda_rollout.kuka_rollout_cuda(*a, **ro_kw),
+                    lambda a: cuda_rollout.kuka_rollout_plain(*a, **ro_kw),
+                    lambda a, b: cuda_rollout.kuka_rollout_cuda(*(t[b] for t in a[:5]), *a[5:],
+                                                               **ro_kw)),
+        "riccati": (riccati_inputs, lambda a: bp(*a),
+                    lambda a: cuda_riccati.run_block(step, a[0][:, None].expand(-1, M), *a[1:]),
+                    lambda a, b: bp(*(t[b] for t in a[:7]), a[7])),
+    }
+    for name, (inputs, call, plain, one) in cases.items():
+        r = next(k for k in kernels if k["name"] == name)
+        args = inputs(BATCH_CHECK)
+        got = call(args)
+        if name == "riccati":
+            ref = bp(*[t.cpu() for t in args])        # plain version on CPU tensors
+            if bool(got[7].any()) or bool(ref[7].any()):
+                fail("riccati batched: synthetic SPD inputs reported a Cholesky failure")
+            got, ref = got[:7], ref[:7]
+        else:
+            ref = cuda_rollout.kuka_rollout_plain(*[t.cpu() for t in args], **ro_kw)
+        err, ok = compare(name, got, [t.to(dev) for t in ref])
+        same = all(torch.equal(g[b], o) for b in BATCH_SAMPLES
+                   for g, o in zip(got, one(args, b)))
+        times = []
+        for B in BATCH_SIZES:
+            a = args if B == BATCH_CHECK else inputs(B)
+            out = call(a)
+            ms = cuda_ms(lambda: call(a), BATCH_TIMED)
+            bound = roofline(a, out, count_ops(lambda: plain(a)))
+            r[f"ms_b{B}"], r[f"bound_ms_b{B}"] = ms, bound["bound_ms"]
+            r[f"bytes_b{B}"], r[f"operations_b{B}"] = bound["bytes"], bound["operations"]
+            times.append(f"B={B} {ms:.4f} ms (bound {bound['bound_ms']:.3e} ms by "
+                         f"{bound['bound_by']}, {bound['bytes']} B, {bound['operations']} ops)")
+            del a, out
+        print(f"batched: {name} kernel at B={BATCH_CHECK}: max_abs_err {err:.3e} "
+              f"({'ok' if ok else 'OUT OF TOLERANCE'}) against the plain version; scenarios "
+              f"{list(BATCH_SAMPLES)} {'equal' if same else 'DIFFER FROM'} their own launches bit "
+              f"for bit; {'; '.join(times)}", flush=True)
+        r["max_abs_err"] = max(r["max_abs_err"], err)
+        r["ok"] = r["ok"] and ok
+        if not (ok and same):
+            fail(f"batched {name} kernel: plain tolerance {'ok' if ok else 'missed'}, "
+                 f"per-scenario launches {'equal' if same else 'differ'}")
+        torch.cuda.empty_cache()
+    # the dynamics kernels take the scenarios' samples flattened (one program
+    # a sample or chain: nothing to hold per scenario), at every B against
+    # their plain versions: on CPU tensors at B = BATCH_CHECK, on the card's
+    # tensors at the larger B (the CPU would take minutes there).  The
+    # Jacobian and its Euler AB: B * 63 samples a derivative stage; the chain:
+    # B * M blocks of Nf steps (the batched solve's initial rollout) and B
+    # chains of N - 1 steps (the fleet step's warm start)
+    dt = 0.5 / (N - 1)
+    eye = lambda k, ref: torch.eye(k, device=ref.device).expand(len(ref), k, k)
+    zero = lambda k, ref: torch.zeros(len(ref), k, k, device=ref.device)
+    plain_ab = cuda_rbd.make_ab_composer(None, lambda xs, us: torch.cat(
+        [torch.cat([zero(nu, xs), eye(nu, xs), zero(nu, xs)], dim=2),
+         cuda_rbd.kuka_jac_qdd_plain(xs, us, 1, 0.0)[0]], dim=1), 1, dt, nx, nu)
+    ab = cuda_rbd.make_kuka_ab(1, 0.0, 1, dt)
+    chain_step = cuda_rollout._kuka_step(1, 0.0, 1, dt)
+    chain_kw = dict(ee_type=1, gravity=0.0, integrator=1, dt=dt)
+    plain_on = lambda B, args: [t.cpu() for t in args] if B == BATCH_CHECK else args
+    r = next(k for k in kernels if k["name"] == "rbd_jac")
+    rc = next(k for k in kernels if k["name"] == "sim_chain")
+    times, chains, bad = [], [], []
+    for B in BATCH_SIZES:
+        x, u = rand(B * (N - 1), nx, s=0.5), rand(B * (N - 1), nu, s=2.0)
+        out = cuda_rbd.kuka_jac_qdd_cuda(x, u, 1, 0.0)
+        xr, ur = plain_on(B, (x, u))
+        err, ok = compare("rbd_jac", out, [t.to(dev) for t in
+                                           cuda_rbd.kuka_jac_qdd_plain(xr, ur, 1, 0.0)])
+        ab_err, ab_ok = compare("rbd_jac", [ab(x, u)], [plain_ab(xr, ur).to(dev)])
+        del xr, ur
+        ms = cuda_ms(lambda: cuda_rbd.kuka_jac_qdd_cuda(x, u, 1, 0.0), BATCH_TIMED)
+        ab_ms = cuda_ms(lambda: ab(x, u), BATCH_TIMED)
+        bound = roofline((x, u), out, count_ops(lambda: cuda_rbd.kuka_jac_qdd_plain(x, u, 1, 0.0)))
+        r[f"ms_b{B}"], r[f"ms_euler_ab_b{B}"] = ms, ab_ms
+        r[f"bound_ms_b{B}"] = bound["bound_ms"]
+        r[f"bytes_b{B}"], r[f"operations_b{B}"] = bound["bytes"], bound["operations"]
+        r["max_abs_err"] = max(r["max_abs_err"], err, ab_err)
+        r["ok"] = r["ok"] and ok and ab_ok
+        if not (ok and ab_ok):
+            bad.append(f"rbd_jac at B={B}")
+        times.append(f"B={B} ({B * (N - 1)} samples) max_abs_err {err:.3e}, Euler AB {ab_err:.3e} "
+                     f"({'ok' if ok and ab_ok else 'OUT OF TOLERANCE'}); {ms:.4f} ms, Euler AB "
+                     f"{ab_ms:.4f} ms (bound {bound['bound_ms']:.3e} ms by {bound['bound_by']})")
+        del x, u, out
+        for lead, T in (((B, M), nf), ((B,), N - 1)):
+            x0, uc = rand(*lead, nx, s=0.3), rand(*lead, T, nu, s=1.0)
+            got = cuda_sim_chain.kuka_open_loop_cuda(x0, uc, **chain_kw)
+            err, ok = compare("sim_chain", [got], [
+                cuda_sim_chain.open_loop_plain(chain_step, *plain_on(B, (x0, uc))).to(dev)])
+            rc["max_abs_err"] = max(rc["max_abs_err"], err)
+            rc["ok"] = rc["ok"] and ok
+            if not ok:
+                bad.append(f"sim_chain at {lead} x T={T}")
+            chains.append(f"{int(np.prod(lead))} chains x T={T}: max_abs_err {err:.3e} "
+                          f"({'ok' if ok else 'OUT OF TOLERANCE'})")
+            del x0, uc, got
+    print(f"batched: rbd_jac kernel against its plain version (CPU tensors at B={BATCH_CHECK}, "
+          f"the card's above): {'; '.join(times)}", flush=True)
+    print(f"batched: sim_chain open loop against its plain version (CPU tensors at "
+          f"B={BATCH_CHECK}, the card's above): {'; '.join(chains)}", flush=True)
+    if bad:
+        fail(f"batched: flattened dynamics kernels disagree with their plain versions: {bad}")
+    torch.cuda.empty_cache()
+
+
+def batched_stages(torch, dev, solver, cfg, x, u, goals):
+    """ms of the stages of one batched iteration (eager, CUDA events), at the
+    batch of x (B, N, n): where a batched solve's time goes."""
+    from parallel_ddp_tpu_torch.config import weights_of, weights_tensor
+    from parallel_ddp_tpu_torch.parallel.backward import backward_pass
+    from parallel_ddp_tpu_torch.parallel.forward import forward_pass, forward_sweep
+    from parallel_ddp_tpu_torch.solver import _derivatives, goal_dims, per_scenario
+
+    B, N, n = x.shape
+    w = weights_of(weights_tensor(None, dev), x)
+    dims = goal_dims(goals)
+    quad, stage = per_scenario(solver.cost.quad, dims), per_scenario(solver.cost.stage, dims)
+    ks = torch.arange(N, device=dev)
+    AB, H, g = _derivatives(cfg, solver.step_jac, quad, x, u, goals, w)
+    zeros = x.new_zeros
+    rho = torch.full((B,), cfg.rho_init, device=dev)
+    back = lambda: backward_pass(cfg, AB, H, g, zeros(B, N, n, n), zeros(B, N, n), zeros(B, N, n),
+                                 x, x, rho, torch.ones_like(rho))
+    bp = back()
+    alphas = solver.alphas(dev, x.dtype)
+    stage_fn = lambda xk, uk, k: stage(xk, uk, k, goals, w)
+    x_sw = forward_sweep(cfg, bp.ApBK, bp.Bdu, zeros(B, N, n), x, x, alphas)
+    ms = {
+        "derivative stage": cuda_ms(lambda: _derivatives(cfg, solver.step_jac, quad, x, u, goals,
+                                                         w), 5),
+        "  AB (Jacobian kernel)": cuda_ms(lambda: solver.step_jac(
+            x[:, :-1].reshape(-1, n), u[:, :-1].reshape(-1, u.shape[-1])), 5),
+        "  cost H/g (vmapped)": cuda_ms(lambda: quad(x, u, ks, goals, w), 5),
+        "backward pass (Riccati kernel)": cuda_ms(back, 5),
+        "forward pass": cuda_ms(lambda: forward_pass(
+            cfg, solver.step_fn, stage_fn, x, u, zeros(B, N, n), bp.K, bp.du, bp.ApBK, bp.Bdu, x,
+            alphas, fused_sim=solver.fused_sim), 5),
+        "  sweep (63 baddbmm)": cuda_ms(lambda: forward_sweep(
+            cfg, bp.ApBK, bp.Bdu, zeros(B, N, n), x, x, alphas), 5),
+        "  rollout kernel": cuda_ms(lambda: solver.fused_sim(x_sw, u, bp.K, bp.du, x, alphas), 5),
+        "  stage cost of the candidates (vmapped)": cuda_ms(
+            lambda: stage(x_sw, x_sw[..., :u.shape[-1]], ks, goals, w), 5),
+    }
+    return ms
+
+
+def batched_phase(torch, np, dev, cold, canon, fleet, kernels, card):
+    """Scenario batching end to end: the batched solve (correctness at
+    B = BATCH_CHECK, launches and throughput at every B of BATCH_SIZES), the
+    fleet MPC step, and the control step with changed weights."""
+    from parallel_ddp_tpu_torch.mpc.driver import MPCState
+    from parallel_ddp_tpu_torch.parallel.sharding import make_batched_solver
+    from parallel_ddp_tpu_torch.presets import kuka_ee
+    from parallel_ddp_tpu_torch.solver import make_ilqr_solver
+
+    t_phase = time.perf_counter()
+    batched_kernel_checks(torch, np, dev, kernels)
+    prob = kuka_ee()
+    cfg = dataclasses.replace(prob.cfg, pallas_riccati=True, max_iter=BATCH_CHECK_ITERS)
+    tile = lambda t, B: t[None].expand((B,) + t.shape).contiguous()
+
+    # -- correctness at B = BATCH_CHECK: the sampled scenarios alone through
+    #    the single solver's graph
+    B = BATCH_CHECK
+    x0s, u0s, goals = tile(cold.x, B), tile(cold.u, B), batch_goals(torch, np, B, None, dev)
+    solve = make_batched_solver(prob.plant, prob.cost, cfg)
+    solve(x0s, u0s, goals)                                         # the capture
+    torch.cuda.synchronize()
+    out, syncs = count_syncs(torch, lambda: solve(x0s, u0s, goals))
+    reads = solve.solver.host_syncs
+    iters = out.iters.cpu().numpy()
+    J, J0 = out.J.cpu().numpy(), out.J_trace[:, 0].cpu().numpy()
+    print(f"batched: WAFR solve at B={B} (tol_cost {cfg.tol_cost:g}, at most {cfg.max_iter} "
+          f"iterations, from the cold solve's trajectory): iterations min {iters.min()}, median "
+          f"{float(np.median(iters)):g}, max {iters.max()} ({len(set(iters.tolist()))} distinct); "
+          f"J median {float(np.median(J)):.4f}; host reads {reads} (torch sync-debug count "
+          f"{syncs})", flush=True)
+    if reads or syncs:
+        fail(f"batched solve synchronised with the host ({reads} reads, {syncs} syncs)")
+    if not (np.all(np.isfinite(J)) and np.all(J <= J0)):
+        fail("batched solve: non-finite J or J above J0")
+    single = make_ilqr_solver(prob.plant, prob.cost, cfg)
+    gaps, needs = [], []
+    for b in BATCH_SAMPLES:
+        goal_b = {k: v[b] for k, v in goals.items()}
+        one = single(cold.x, cold.u, goal_b, initial_rollout=True)
+        it = int(one.iters)
+        ga, oa = out.alpha_trace[b, :it + 1].cpu(), one.alpha_trace[:it + 1].cpu()
+        gap = trace_gap(out.J_trace[b], one.J_trace, it)
+        gaps.append(float(gap.max()))
+        # witnesses that tell rounding from a fault: (a) B copies of scenario
+        # b, each equal to the others and to scenario b of the mixed batch
+        # bit for bit (a scenario's result depends on its own inputs and B
+        # alone); (b) scenario b as a batch of 1, bit for bit the single
+        # graph (the batched body and its vmapped cost are the single
+        # solve's); (c) the rounding envelope: the single solve from controls
+        # moved by one ulp, against the single solve.  What is left between
+        # the batch and the single solve is what the glue's kernels round
+        # otherwise at another B, and it must stay inside the envelope
+        copies = solve(x0s, u0s, {k: tile(v, B) for k, v in goal_b.items()})
+        same = all(torch.equal(bits(t), bits(t[:1]).expand_as(bits(t)))
+                   and torch.equal(bits(t[0]), bits(s[b]))
+                   for t, s in zip(copies, out))
+        del copies
+        alone = solve(x0s[:1], u0s[:1], {k: v[b:b + 1] for k, v in goals.items()})
+        alone_same = all(torch.equal(bits(t[0]), bits(s)) for t, s in zip(alone, one))
+        moved = single(cold.x, torch.nextafter(cold.u, torch.full_like(cold.u, float("inf"))),
+                       goal_b, initial_rollout=True)
+        env = trace_gap(moved.J_trace, one.J_trace, min(it, int(moved.iters)))
+        moved_part = first_difference(moved.alpha_trace, one.alpha_trace, it)
+        envelope = np.maximum(J_TRACE_FLOOR, np.maximum.accumulate(
+            np.pad(env, (0, len(gap) - len(env)), mode="edge")))
+        needs.append(float(np.max(gap / envelope)))
+        print(f"batched: scenario {b}: {it} iterations; relative J-trace gap to the single solve "
+              f"at iterations {list(GAP_AT)}: mixed batch {at_iters(gap)}, one-ulp envelope "
+              f"{at_iters(env)} (its alphas part at iteration {moved_part}); the gap reaches "
+              f"{needs[-1]:.3f} x the envelope's running largest (limit {J_TRACE_FACTOR:g}); alone "
+              f"as a batch of 1 {'equal to' if alone_same else 'DIFFERENT FROM'} the single "
+              f"graph bit for bit; {B} copies "
+              f"{'equal each other and the mixed batch' if same else 'DIFFER'} bit for bit",
+              flush=True)
+        if not (same and alone_same):
+            fail(f"batched scenario {b}: {B} copies equal each other and the mixed batch: {same}; "
+                 f"alone as a batch of 1 equal to the single graph: {alone_same}")
+        if int(iters[b]) != it or not torch.equal(ga, oa) or not np.isclose(
+                float(out.J[b]), float(one.J), rtol=SOLVE_RTOL, atol=0.0) or \
+                needs[-1] > J_TRACE_FACTOR:
+            fail(f"batched scenario {b} and its single solve disagree: iterations {iters[b]} vs "
+                 f"{it}, alphas {ga.tolist()} vs {oa.tolist()}, J {float(out.J[b])} vs "
+                 f"{float(one.J)}, J-trace gap up to {needs[-1]:.3f} x the envelope")
+    print(f"batched: scenarios {list(BATCH_SAMPLES)} equal their single solves (graph replays: "
+          f"iterations, alphas, final J within rtol {SOLVE_RTOL}, J trace within "
+          f"{J_TRACE_FACTOR:g} x the one-ulp envelope at every iteration; largest relative gap "
+          f"{max(gaps):.2e}, largest share of the envelope {max(needs):.3f})", flush=True)
+    del out
+    torch.cuda.empty_cache()
+
+    # -- launches and throughput of a batched 6-iteration solve at each B
+    cfg6 = dataclasses.replace(cfg, max_iter=N_ITERS, tol_cost=0.0)
+    solve6 = make_batched_solver(prob.plant, prob.cost, cfg6)
+    rows, path_counts, per_b = [], None, {}
+    for Bt in BATCH_SIZES:
+        xs, us, gs = tile(cold.x, Bt), tile(cold.u, Bt), batch_goals(torch, np, Bt, None, dev)
+        call = lambda: solve6(xs, us, gs)
+        call()                                                     # the capture
+        torch.cuda.synchronize()
+        reset_counts()
+        call()
+        torch.cuda.synchronize()
+        counts = read_counts()
+        if path_counts is None:
+            path_counts = counts
+            require_launched("wafr_batched", counts)
+        if not (counts["rbd_jac"] == counts["rollout"] == N_ITERS
+                and counts["riccati"] >= N_ITERS) or counts != path_counts:
+            fail(f"batched B={Bt}: launches {counts} (want {N_ITERS} of the Jacobian and the "
+                 f"rollout kernel, {N_ITERS} or more of Riccati, as at B={BATCH_SIZES[0]})")
+        times = []
+        for _ in range(BATCH_TIMED):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            call()
+            end.record()
+            torch.cuda.synchronize()
+            times.append(start.elapsed_time(end))
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        for _ in range(BATCH_TIMED):
+            call()
+        end.record()
+        torch.cuda.synchronize()
+        share = start.elapsed_time(end) / ((time.perf_counter() - t0) * 1e3)
+        ms = float(np.median(times))
+        g = solve6.solver.graphs.stats()[-1]
+        per_b[Bt] = dict(ms=ms, solves_per_s=Bt / ms * 1e3, nodes=g.nodes, pool_bytes=g.pool_bytes,
+                         capture_s=g.seconds, busy=share)
+        rows.append(f"B={Bt}: {ms:.3f} ms a batched solve (median of {BATCH_TIMED}, min "
+                    f"{min(times):.3f}, max {max(times):.3f}), {Bt / ms * 1e3:.0f} solves/s; "
+                    f"graph {g.nodes} nodes (bodies {list(g.body_nodes)}), pool {g.pool_bytes} B, "
+                    f"captured in {g.seconds:.3f} s; stream busy {share:.3f}")
+        if Bt == BATCH_STAGES:
+            stage_ms = batched_stages(torch, dev, solve6.solver, cfg6, xs, us, gs)
+        del xs, us, gs
+        torch.cuda.empty_cache()
+    print(f"batched: ms per call of the stages of one batched iteration at B={BATCH_STAGES} "
+          f"(eager, CUDA events): " + "; ".join(f"{k.strip()} {v:.3f}" for k, v in
+                                                 stage_ms.items()), flush=True)
+    print(f"batched: launches of one batched {N_ITERS}-iteration solve (counted on the device), "
+          f"the same at every B: {json.dumps(path_counts)}", flush=True)
+    print(f"batched: {N_ITERS}-iteration WAFR solves (tol_cost 0) on {card}: " + "; ".join(rows),
+          flush=True)
+
+    # -- the fleet MPC step from the settled fig-8 state
+    ctrl, run, w = fleet["ctrl"], fleet["run"], fleet["w"]
+    st_s, x_s, t_s = fleet["settled"]
+    Bf = BATCH_CHECK
+    x_act = tile(x_s, Bf)
+    goals_f = batch_goals(torch, np, Bf, fleet["x_init"], dev)
+    t0s = torch.full((Bf,), t_s, dtype=torch.float32, device=dev)
+    sts = ctrl.init_state_batch(x_act, t0s, goals_f, w)
+    t_now = t0s + FIG8_PERIOD
+    step = lambda: ctrl.step_batch(sts, x_act, t_now, goals_f, w)
+    step()                                                         # the capture
+    torch.cuda.synchronize()
+    (new, info), syncs = count_syncs(torch, step)
+    reads = ctrl.host_syncs
+    step_ms = []
+    for _ in range(BATCH_TIMED):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        step()
+        end.record()
+        torch.cuda.synchronize()
+        step_ms.append(start.elapsed_time(end))
+    one_st, one_info = ctrl.step(MPCState(*(a[0] for a in sts)), x_act[0], t_now[0],
+                                 {k: v[0] for k, v in goals_f.items()}, w)
+    acc = info.accepted.cpu().numpy()
+    print(f"batched: fleet MPC step at B={Bf} (init_state_batch from the settled fig-8 state, "
+          f"goals along the path): {float(np.median(step_ms)):.3f} ms a replay (median of "
+          f"{BATCH_TIMED}), {Bf / float(np.median(step_ms)) * 1e3:.0f} control steps/s; accept "
+          f"rate {acc.mean():.3f}; host reads {reads} (torch sync-debug count {syncs}); scenario 0 "
+          f"J {float(info.J[0]):.5f} accepted {bool(info.accepted[0])} shift "
+          f"{int(info.shift_steps[0])}, single step J {float(one_info.J):.5f} accepted "
+          f"{bool(one_info.accepted)} shift {int(one_info.shift_steps)}", flush=True)
+    if reads or syncs:
+        fail(f"fleet MPC step synchronised with the host ({reads} reads, {syncs} syncs)")
+    if not (bool(info.accepted[0]) == bool(one_info.accepted)
+            and int(info.shift_steps[0]) == int(one_info.shift_steps)
+            and np.isclose(float(info.J[0]), float(one_info.J), rtol=SOLVE_RTOL, atol=0.0)):
+        fail("fleet MPC step: scenario 0 and the single step disagree")
+
+    # -- queue C 1: the control step with changed weights, no new capture
+    one_goal = {k: v[:1] for k, v in fleet["goals_track"].items()}
+    t_dev = torch.full((), t_s, dtype=torch.float32, device=dev)
+    before = len(run.graphs)
+    a = run(st_s, x_s, t_dev, one_goal, w)
+    b = run(st_s, x_s, t_dev, one_goal, w._replace(q_ee1=0.5 * w.q_ee1, qf_ee1=0.5 * w.qf_ee1))
+    print(f"batched: fig-8 control step with the EE weights halved: J {float(a.J[0]):.5f} -> "
+          f"{float(b.J[0]):.5f}; captures of the loop {before} -> {len(run.graphs)}", flush=True)
+    if len(run.graphs) != before or torch.equal(a.J, b.J):
+        fail("a weight change made a new capture or did not take effect")
+    # -- a B = 2 batch on CPU tensors (plain versions, host loop) against the
+    #    card (last: the CPU solves take the longest): the solve phase's
+    #    canonical cold start toward its first two goals, where a single
+    #    solve's GPU and CPU traces agree within SOLVE_RTOL (on the fig-8
+    #    inputs below they part by more, a single solve as much as the batch)
+    args2 = (torch.stack([canon["x0"]] * 2), torch.stack([canon["u0"]] * 2),
+             {k: torch.stack([g[k] for g in canon["goals"]]) for k in canon["goals"][0]})
+    kw = dict(initial_rollout=True, iter_limit=BATCH_CPU_ITERS)
+    cpu_solver = make_ilqr_solver(prob.plant, prob.cost, cfg)
+    gpu2 = solve.solver.solve_batch(*args2, **kw)
+    cpu2 = cpu_solver.solve_batch(args2[0].cpu(), args2[1].cpu(),
+                                  {k: v.cpu() for k, v in args2[2].items()}, **kw)
+    for i, b in enumerate(("goal 0", "goal 1")):
+        ga, ca = gpu2.alpha_trace[i].cpu(), cpu2.alpha_trace[i]
+        gj = gpu2.J_trace[i, :BATCH_CPU_ITERS + 1].cpu().numpy()
+        cj = cpu2.J_trace[i, :BATCH_CPU_ITERS + 1].numpy()
+        print(f"batched: B=2 batch, scenario {b}: GPU J {gj.tolist()} alphas "
+              f"{ga[1:BATCH_CPU_ITERS + 1].tolist()}; CPU J {cj.tolist()} alphas "
+              f"{ca[1:BATCH_CPU_ITERS + 1].tolist()}", flush=True)
+        if not torch.equal(ga, ca) or not np.isclose(float(gpu2.J[i]), float(cpu2.J[i]),
+                                                     rtol=SOLVE_RTOL, atol=0.0):
+            fail(f"batched B=2 GPU and CPU solves disagree (scenario {b}: alphas, or final J "
+                 f"beyond rtol {SOLVE_RTOL})")
+    print(f"batched: a B=2 batch ({BATCH_CPU_ITERS} iterations) agrees with CPU tensors "
+          f"(alphas, final J within rtol {SOLVE_RTOL})", flush=True)
+    # the same on the fig-8 inputs of the correctness batch (its scenarios 0
+    # and 1), beside scenario 0 solved alone on the card and on CPU tensors:
+    # how far the card parts from the CPU at one scenario tells whether the
+    # batch's part is its own
+    goal0 = {k: v[0] for k, v in goals.items()}
+    gpu8 = solve.solver.solve_batch(x0s[:2], u0s[:2], {k: v[:2] for k, v in goals.items()}, **kw)
+    cpu8 = cpu_solver.solve_batch(x0s[:2].cpu(), u0s[:2].cpu(),
+                                  {k: v[:2].cpu() for k, v in goals.items()}, **kw)
+    one_gpu = single(cold.x, cold.u, goal0, **kw)
+    one_cpu = cpu_solver(cold.x.cpu(), cold.u.cpu(), {k: v.cpu() for k, v in goal0.items()}, **kw)
+    it8 = BATCH_CPU_ITERS
+    readings = {
+        "batch GPU vs batch CPU": trace_gap(gpu8.J_trace[0].cpu(), cpu8.J_trace[0], it8),
+        "single GPU vs single CPU": trace_gap(one_gpu.J_trace.cpu(), one_cpu.J_trace, it8),
+        "batch GPU vs single GPU": trace_gap(gpu8.J_trace[0], one_gpu.J_trace, it8),
+        "batch CPU vs single CPU": trace_gap(cpu8.J_trace[0], one_cpu.J_trace, it8),
+    }
+    alphas8 = [t[:it8 + 1].tolist() for t in (gpu8.alpha_trace[0].cpu(), cpu8.alpha_trace[0],
+                                              one_gpu.alpha_trace.cpu(), one_cpu.alpha_trace)]
+    cpu_bits = all(torch.equal(bits(t[0]), bits(s)) for t, s in zip(cpu8, one_cpu))
+    print(f"batched: fig-8 inputs, scenario 0, {it8} iterations: relative J-trace gaps by "
+          f"iteration: " + "; ".join(f"{k} {at_iters(v)}" for k, v in readings.items())
+          + f"; alphas batch GPU / batch CPU / single GPU / single CPU {alphas8}; the CPU batch "
+          f"{'equals' if cpu_bits else 'DIFFERS FROM'} the CPU single solve bit for bit",
+          flush=True)
+    own = readings["batch GPU vs batch CPU"] / np.maximum(
+        J_TRACE_FLOOR, readings["single GPU vs single CPU"])
+    if not (cpu_bits and all(a == alphas8[0] for a in alphas8) and np.all(own <= FIG8_OWN_GAP)):
+        fail(f"batched B=2 on the fig-8 inputs: the card parts from the CPU otherwise than a single "
+             f"solve does (CPU batch bit for bit the single: {cpu_bits}; alphas {alphas8}; "
+             f"gap up to {float(own.max()):.3f} x the single solve's, limit {FIG8_OWN_GAP:g})")
+    print(f"batched: phase took {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return path_counts, per_b, {"batched solver": solve6.solver.graphs}
 
 
 def main():
@@ -1001,10 +1533,13 @@ def main():
     if sys.argv[1:] == ["--kernels-only"]:      # a short run while working on a kernel
         print("stopped after the kernel phase (--kernels-only): no result line", flush=True)
         return
-    solver, cold, goal, launches = solve_phase(torch, np, dev)
+    solver, cold, goal, launches, canon = solve_phase(torch, np, dev)
     median_ms, warm_solve, per_solve = timing_phase(torch, np, dev, solver, cold, goal)
-    fig8_launches, control_step, runner, per_step, fig8_caches = fig8_phase(torch, np, dev, card)
-    caches = {"WAFR solver": solver.graphs, **fig8_caches}
+    fig8_launches, control_step, runner, per_step, fig8_caches, fleet = fig8_phase(
+        torch, np, dev, card)
+    batched_launches, per_b, batched_caches = batched_phase(torch, np, dev, cold, canon, fleet,
+                                                            kernels, card)
+    caches = {"WAFR solver": solver.graphs, **fig8_caches, **batched_caches}
     chain = next(r for r in kernels if r["name"] == "sim_chain")
     chain["max_abs_err"] = max(chain["max_abs_err"], runner.pop("max_abs_err"))
     chain["ok"] = chain["ok"] and runner.pop("ok")
@@ -1032,7 +1567,7 @@ def main():
 
     # launches: the kernel's count on the path LAUNCHES_FROM names (the fig-8
     # closed loop where that runs it); launches_<path>: every path's own count
-    by_path = {"wafr_solve": launches, **fig8_launches}
+    by_path = {"wafr_solve": launches, **fig8_launches, "wafr_batched": batched_launches}
     line = {"kernels": [
         {k: r[k] for k in ("name", "route", "source", "replaces")}
         | {"launches": by_path[LAUNCHES_FROM[r["name"]]][r["name"]],
@@ -1040,13 +1575,17 @@ def main():
            "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
            "bound_by": r["bound_by"], "library_ms": r["library_ms"]}
         | {k: v for k, v in r.items()
-           if k.startswith(("ms_", "plain_ms_b", "host_us", "kernel_us", "bytes", "operations"))}
+           if k.startswith(("ms_", "plain_ms_b", "bound_ms_b", "host_us", "kernel_us", "bytes",
+                            "operations"))}
         | {f"launches_{path}": counts[r["name"]] for path, counts in by_path.items()}
         | {"launches_per_warm_solve": per_solve[r["name"]],
            "launches_per_control_step": per_step[r["name"]]}
         for r in kernels]}
     print(f"solve: median {median_ms:.3f} ms per warm {N_ITERS}-iteration solve on {card}",
           flush=True)
+    print("batched: " + "; ".join(f"B={B} {v['ms']:.3f} ms a {N_ITERS}-iteration batched solve, "
+                                  f"{v['solves_per_s']:.0f} solves/s" for B, v in per_b.items())
+          + f" on {card}", flush=True)
     print(f"total: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps(line), flush=True)
     print(f"card: {card}", flush=True)

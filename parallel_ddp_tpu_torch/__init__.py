@@ -14,6 +14,7 @@ solver refuses to run on CUDA while TF32 matmuls are enabled.
 from parallel_ddp_tpu_torch.config import CostWeights, SolveOutput, SolverConfig
 from parallel_ddp_tpu_torch.models.base import Plant
 from parallel_ddp_tpu_torch.solver import ilqr_solve, make_ilqr_solver
+from parallel_ddp_tpu_torch.parallel.sharding import make_batched_solver
 
 __all__ = [
     "SolverConfig",
@@ -22,4 +23,5 @@ __all__ = [
     "Plant",
     "ilqr_solve",
     "make_ilqr_solver",
+    "make_batched_solver",
 ]

@@ -5,7 +5,10 @@ so a configuration maps 1:1 between the two packages (`interop.py`).
 
   * `SolverConfig` — static options that shape the solve (horizon, block
     counts, integrator, line-search width ...).
-  * `CostWeights` — the runtime-tunable cost weights (plain floats).
+  * `CostWeights` — the runtime-tunable cost weights (plain floats); the
+    entry points carry them to the device as one tensor of the 21 fields
+    (`weights_tensor`), and the costs read 0-d views of it
+    (`weights_of`), so a new value is data, not a new CUDA graph.
   * `SolveOutput` — the result of one solve, as tensors on the solve's device.
 
 Some fields select JAX-package features that this package does not have yet
@@ -16,8 +19,9 @@ kept so configurations map 1:1, and the solver raises if one is switched on.
 
 from __future__ import annotations
 
+import collections
 import dataclasses
-from typing import NamedTuple
+from typing import NamedTuple, Optional, Union
 
 import numpy as np
 import torch
@@ -139,8 +143,47 @@ class CostWeights(NamedTuple):
     r_tl: float = 100.0
 
 
+# device tensors of the weight values seen last, by (values, device, dtype)
+_WEIGHTS: collections.OrderedDict = collections.OrderedDict()
+_WEIGHTS_KEPT = 64
+
+
+def weights_tensor(w: Optional[CostWeights], device, dtype=torch.float32) -> torch.Tensor:
+    """The weights as one (21,) tensor of dtype on device, in field order
+    (None: the defaults).  A value seen before on this device comes from a
+    cache and costs nothing; a new one is copied to the card from pinned
+    memory without blocking, so neither synchronises the stream."""
+    device = torch.device(device)
+    values = tuple(float(v) for v in (w if w is not None else CostWeights()))
+    key = (values, device, dtype)
+    found = _WEIGHTS.get(key)
+    if found is None:
+        host = torch.tensor(values, dtype=dtype)
+        if device.type == "cuda":
+            host = host.pin_memory()
+        found = _WEIGHTS[key] = host.to(device, non_blocking=True)
+        if len(_WEIGHTS) > _WEIGHTS_KEPT:
+            _WEIGHTS.popitem(last=False)
+    else:
+        _WEIGHTS.move_to_end(key)
+    return found
+
+
+def weights_of(w: Union[CostWeights, torch.Tensor, None],
+               like: Optional[torch.Tensor] = None) -> CostWeights:
+    """A `CostWeights` of 0-d tensors: the fields of a (21,) weights tensor
+    as views, a `CostWeights` of tensors as it is, numbers on like's device
+    and dtype (through `weights_tensor`)."""
+    if isinstance(w, torch.Tensor):
+        return CostWeights(*w.unbind())
+    if w is not None and isinstance(w[0], torch.Tensor):
+        return w
+    return CostWeights(*weights_tensor(w, like.device, like.dtype).unbind())
+
+
 class SolveOutput(NamedTuple):
-    """Result of one iLQR solve (tensors on the solve's device)."""
+    """Result of one iLQR solve (tensors on the solve's device); a batched
+    solve's leaves carry a leading scenario axis B."""
 
     x: torch.Tensor          # (N, n_state) accepted trajectory
     u: torch.Tensor          # (N, n_ctrl) accepted controls

@@ -4,8 +4,11 @@ A cost model provides the running/terminal cost and its (state+control)
 gradient and Hessian — the reference's per-plant `costFunc` / `costGrad`
 contract (cost_arm.cuh:126-390) — evaluated over the time axis as a batch:
 `k` is a tensor of knot indices broadcast against the leading dims of x and u,
-and terminal behaviour switches on k == N-1.  `goal` is a dict of tensors
-interpreted by the specific model; `w` is a `CostWeights` of floats.
+and terminal behaviour switches on k == N-1.  `goal` is any pytree of tensors
+(a dict, a bare tensor) interpreted by the specific model; `w` is a
+`CostWeights` of 0-d tensors (the solver hands the costs views of one device
+tensor, `config.weights_of`) or of numbers.  A cost is pure torch, so a
+batched solve maps it over per-scenario goals with `torch.func.vmap`.
 """
 
 from __future__ import annotations

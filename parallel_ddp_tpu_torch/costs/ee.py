@@ -19,6 +19,10 @@ derivative d(deePos qd)/dq uses `torch.func`.
 
 goal: {"ee_goal": (6,), "x_target": (n_state,)} tensors, optionally
 "cost_shift" (live terminal-weight shift) and "ee_vel_goal" (6,).
+
+w: the weights as data, never baked into the operations: a `CostWeights` of
+0-d tensors (the solver's views of its weights tensor, `config.weights_of`),
+or of numbers, which are put on x's device first.
 """
 
 from __future__ import annotations
@@ -28,7 +32,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from parallel_ddp_tpu_torch.config import CostWeights
+from parallel_ddp_tpu_torch.config import CostWeights, weights_of
 from parallel_ddp_tpu_torch.costs.base import CostModel
 
 
@@ -43,9 +47,10 @@ def _quad_pen(v, limit):
     return pen, dpen, d2pen
 
 
-def _where(cond, a: float, b: float, like):
-    """Per-knot weight a where cond else b, in like's dtype and device."""
-    return torch.where(cond, torch.full_like(like, a), torch.full_like(like, b))
+def _where(cond, a, b, shape=()):
+    """Per-knot weight: a where cond else b (0-d tensors, or a number for
+    one of them), broadcast over cond's shape and `shape`."""
+    return torch.where(cond, a, b).expand(torch.broadcast_shapes(cond.shape, shape))
 
 
 def ee_cost(
@@ -87,22 +92,21 @@ def ee_cost(
             q.reshape(-1, n_pos), qd.reshape(-1, n_pos))
         return flat.reshape(q.shape[:-1] + (6, n_pos))
 
-    def _ee_weights(k, w: CostWeights, goal, like):
+    def _ee_weights(k, w: CostWeights, goal):
         # final-cost-shift: terminal EE weights switch on `cost_shift` steps
         # before the horizon end; a live value in the goal overrides the default
         shift = goal.get("cost_shift", final_cost_shift)
         terminal = (k >= nf - shift)[..., None]
-        ones3 = like.new_ones(3)
-        w_pos = torch.cat([_where(terminal, w.qf_ee1, w.q_ee1, ones3),
-                           _where(terminal, w.qf_ee2, w.q_ee2, ones3)], dim=-1)
-        w_vel = torch.cat([_where(terminal, w.qf_eev1, w.q_eev1, ones3),
-                           _where(terminal, w.qf_eev2, w.q_eev2, ones3)], dim=-1)
+        w_pos = torch.cat([_where(terminal, w.qf_ee1, w.q_ee1, (3,)),
+                           _where(terminal, w.qf_ee2, w.q_ee2, (3,))], dim=-1)
+        w_vel = torch.cat([_where(terminal, w.qf_eev1, w.q_eev1, (3,)),
+                           _where(terminal, w.qf_eev2, w.q_eev2, (3,))], dim=-1)
         return w_pos, w_vel
 
     def _ee_terms(x, k, goal, w):
         q, qd = x[..., :n_pos], x[..., n_pos:]
         delta = ee_pos(q) - goal["ee_goal"]
-        w_pos, w_vel = _ee_weights(k, w, goal, x)
+        w_pos, w_vel = _ee_weights(k, w, goal)
         quad = (w_pos * delta * delta).sum(-1)
         if use_ee_vel:
             eev = (ee_jac(q) @ qd[..., None])[..., 0] - goal.get("ee_vel_goal", 0.0)
@@ -121,22 +125,21 @@ def ee_cost(
             return torch.cat([w.q_pl * dq_, w.q_vl * dv, w.r_tl * dt_], dim=-1)
         return torch.cat([w.q_pl * d2q, w.q_vl * d2v, w.r_tl * d2t], dim=-1)
 
-    def _nominal_weights(k, w: CostWeights, like):
+    def _nominal_weights(k, w: CostWeights):
         terminal = k == nf
-        one = like.new_ones(())
-        return (_where(terminal, w.qf_xee, w.q_xee, one),
-                _where(terminal, w.qf_xdee, w.q_xdee, one))
+        return (_where(terminal, w.qf_xee, w.q_xee), _where(terminal, w.qf_xdee, w.q_xdee))
 
-    def _rk(k, w, like):
-        return _where(k == nf, 0.0, w.r_ee, like.new_ones(()))
+    def _rk(k, w):
+        return _where(k == nf, 0.0, w.r_ee)
 
     def stage(x, u, k, goal, w: CostWeights):
+        w = weights_of(w, x)
         ee_c, _, _, _ = _ee_terms(x, k, goal, w)
         if use_smooth_abs:
             a = smooth_abs_alpha
             ee_c = torch.sqrt(2.0 * ee_c + a * a) - a
-        cost = ee_c + 0.5 * _rk(k, w, x) * (u * u).sum(-1)
-        qq, qqd = _nominal_weights(k, w, x)
+        cost = ee_c + 0.5 * _rk(k, w) * (u * u).sum(-1)
+        qq, qqd = _nominal_weights(k, w)
         dxt = x - goal["x_target"]
         cost = cost + 0.5 * (
             qq * (dxt[..., :n_pos] ** 2).sum(-1) + qqd * (dxt[..., n_pos:] ** 2).sum(-1)
@@ -146,6 +149,7 @@ def ee_cost(
         return cost
 
     def quad(x, u, k, goal, w: CostWeights):
+        w = weights_of(w, x)
         q, qd = x[..., :n_pos], x[..., n_pos:]
         ee_c, delta, w_pos, w_vel = _ee_terms(x, k, goal, w)
         jac = ee_jac(q)                                           # (..., 6, n_pos)
@@ -163,11 +167,11 @@ def ee_cost(
             a = smooth_abs_alpha
             g_ee_x = g_ee_x / torch.sqrt(2.0 * ee_c + a * a)[..., None]
 
-        qq, qqd = _nominal_weights(k, w, x)
+        qq, qqd = _nominal_weights(k, w)
         dxt = x - goal["x_target"]
         g_nom = torch.cat([qq[..., None] * dxt[..., :n_pos],
                            qqd[..., None] * dxt[..., n_pos:]], dim=-1)
-        rk = _rk(k, w, x)
+        rk = _rk(k, w)
         g = torch.cat([g_ee_x + g_nom, rk[..., None] * u], dim=-1)
         if use_limits:
             g = g + _limit_terms(x, u, w, 1)

@@ -82,10 +82,13 @@ rbd_jac_kernel(const float* __restrict__ cc_g, const float* __restrict__ x,
 }
 
 // x (B, 14), u (B, 7) -> jac (B, 7, 21), qdd (B, 7), ab (B, 14, 21); a null
-// output pointer leaves that output out.  dt is used by ab only.
+// output pointer leaves that output out.  dt is used by ab only.  A batched
+// solve flattens its scenarios into B (4096 scenarios: 258,048 samples,
+// 169,344 blocks); the int indices above hold while B * 14 * 21 fits an int.
 extern "C" int pddp_rbd_jac(const float* consts, const float* x, const float* u, float* jac,
                             float* qdd, float* ab, int batch, float dt, void* stream) {
   if (batch <= 0) return 0;
+  if (batch > 0x7fffffff / (RBD_NX * RBD_NIN)) return static_cast<int>(cudaErrorInvalidValue);
   const int blocks = (batch * RBD_NIN + KG_LANES - 1) / KG_LANES;
   rbd_jac_kernel<<<blocks, KG_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
       consts, x, u, jac, qdd, ab, batch, dt);

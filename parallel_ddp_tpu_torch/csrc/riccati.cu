@@ -15,8 +15,15 @@
 //   K, du, P', p', A - B K, B du, the dJ terms and the fail flag
 // The terminal step k = N-1 passes the seed through with zero gains.  Outputs
 // are written at their own step index, so they come back in ascending k.
-// dJ and fail are also reduced over the lanes here, by the last block to
-// finish, in lane order (no float atomics: the sum is deterministic).
+// dJ and fail are also reduced over each scenario's lanes here, by the last
+// of its blocks to finish, in lane order (no float atomics: the sum is
+// deterministic).
+//
+// Scenarios: a batch of S independent problems (a batched solve) is S * Mb
+// lanes, scenario-major; every lane runs the same program on its own inputs,
+// so a scenario's outputs do not depend on the others'.  Each scenario has
+// its own ticket, dJ and fail (the reference packs scenarios into its lane
+// tile the same way, pallas_riccati.py:430-477).
 //
 // What bounds it on the H100: at the main path there are M = 4 lanes (4
 // thread blocks on 4 of the 132 SMs) and Nb = 16 dependent steps of ~10k
@@ -54,8 +61,9 @@
 //     summation index ascending; nvcc's fused multiply-adds differ, and a
 //     division by a diagonal entry of the factor goes through its reciprocal
 //     with one correction step, which rounds as the division does.
-// The counter of finished lanes is the caller's, one per call, zeroed on the
-// launch's stream just before it: sweeps on different streams do not share it.
+// The counters of finished lanes are the caller's, one per scenario and call,
+// zeroed on the launch's stream just before it: sweeps on different streams
+// do not share them.
 
 #include <cuda_pipeline_primitives.h>
 #include <cuda_runtime.h>
@@ -120,9 +128,12 @@ riccati_kernel(const float* __restrict__ seedP, const float* __restrict__ seedp,
                float* __restrict__ P_out, float* __restrict__ p_out, float* __restrict__ K_out,
                float* __restrict__ du_out, float* __restrict__ ApBK_out,
                float* __restrict__ Bdu_out, float* dj_lane, int* fail_lane, float* dj_total,
-               int* fail_total, unsigned int* lanes_done, int Nb, int n_rt, int m_rt, int nf, int n_blocks_f, int state_reg,
-               int use_defect, int stages, long long* clocks) {
-  const int lane = blockIdx.x;
+               unsigned char* fail_total, unsigned int* lanes_done, int lanes, int Nb, int n_rt,
+               int m_rt, int nf, int n_blocks_f, int state_reg, int use_defect, int stages,
+               long long* clocks) {
+  const int lane = blockIdx.x;                 // scenario-major: scen * lanes + time block
+  const int scen = lane / lanes;
+  const int tblk = lane - scen * lanes;        // the time block: its step indices
   const int tid = threadIdx.x;
   const int n = N_ > 0 ? N_ : n_rt;
   const int m = M_ > 0 ? M_ : m_rt;
@@ -159,13 +170,13 @@ riccati_kernel(const float* __restrict__ seedP, const float* __restrict__ seedp,
   float dj0_acc = 0.f, dj1_acc = 0.f;   // live in thread `tally`
   int fail_acc = 0;
 
-  long long k_next = kidx[(size_t)lane * Nb + Nb - 1];
+  long long k_next = kidx[(size_t)tblk * Nb + Nb - 1];
   int slot = 0;                          // i % stages
   for (int i = 0; i < Nb; ++i) {
     const int t = Nb - 1 - i;
     const size_t step = (size_t)lane * Nb + t;
     const int k = static_cast<int>(k_next);
-    if (t > 0) k_next = kidx[step - 1];   // in flight during this step
+    if (t > 0) k_next = kidx[(size_t)tblk * Nb + t - 1];   // in flight during this step
     const bool term = (k == nf);
     const bool dfct = use_defect && ((k + 1) % n_blocks_f == 0) && (k < nf);
 
@@ -358,43 +369,45 @@ riccati_kernel(const float* __restrict__ seedP, const float* __restrict__ seedp,
     dj_lane[lane * 2 + 1] = dj1_acc;
     fail_lane[lane] = fail_acc;
     __threadfence();
-    // the last block to arrive sums the lanes in lane order
-    const unsigned int last = gridDim.x - 1;
-    if (atomicAdd(lanes_done, 1u) == last) {
+    // the last of the scenario's blocks to arrive sums its lanes in lane order
+    if (atomicAdd(lanes_done + scen, 1u) == static_cast<unsigned int>(lanes - 1)) {
       __threadfence();
-      const volatile float* vd = dj_lane;
-      const volatile int* vf = fail_lane;
+      const volatile float* vd = dj_lane + (size_t)scen * lanes * 2;
+      const volatile int* vf = fail_lane + (size_t)scen * lanes;
       float s0 = 0.f, s1 = 0.f;
       int f = 0;
-      for (unsigned int l = 0; l <= last; ++l) {
+      for (int l = 0; l < lanes; ++l) {
         s0 = s0 + vd[2 * l];
         s1 = s1 + vd[2 * l + 1];
         f = f | vf[l];
       }
-      dj_total[0] = s0;
-      dj_total[1] = s1;
-      fail_total[0] = f;
+      dj_total[2 * scen] = s0;
+      dj_total[2 * scen + 1] = s1;
+      fail_total[scen] = f ? 1 : 0;
     }
   }
 }
 
-// Lane-major inputs: seedP (Mb, n, n), seedp (Mb, n), rho (one float, rho_stride
-// 0, or one per lane, rho_stride 1), AB (Mb, Nb, n, n+m), H (Mb, Nb, n+m, n+m),
-// g (Mb, Nb, n+m), d (Mb, Nb, n), k (Mb, Nb) int64.  Outputs in the same
-// (Mb, Nb, ...) layout, per-lane dJ (Mb, 2) and fail (Mb) int32, and their
-// reductions over the lanes dj_total (2) and fail_total (1) int32; lanes_done
-// (1) is this call's scratch counter, zeroed here.
+// S scenarios of Mb lanes, scenario-major: seedP (S, Mb, n, n), seedp (S, Mb, n),
+// rho (one float, rho_stride 0, or one per lane (S, Mb), rho_stride 1), AB
+// (S, Mb, Nb, n, n+m), H (S, Mb, Nb, n+m, n+m), g (S, Mb, Nb, n+m), d (S, Mb, Nb,
+// n), and the step indices k (Mb, Nb) int64, the same for every scenario.
+// Outputs in the (S, Mb, Nb, ...) layout, per-lane dJ (S, Mb, 2) and fail
+// (S, Mb) int32, and their reductions over each scenario's lanes dj_total
+// (S, 2) and fail_total (S) bytes (0 or 1); lanes_done (S) is this call's
+// scratch counters, zeroed here.
 // clocks: null, or (Nb, RIC_CLOCK_SLOTS) int64 for a RIC_PHASE_CLOCKS build.
 extern "C" int pddp_riccati(const float* seedP, const float* seedp, const float* rho,
                             int rho_stride, const float* AB, const float* H, const float* g,
                             const float* d, const long long* k, float* P_out, float* p_out,
                             float* K_out, float* du_out, float* ApBK_out, float* Bdu_out,
-                            float* dj_lane, int* fail_lane, float* dj_total, int* fail_total,
-                            unsigned int* lanes_done, int Mb, int Nb, int n, int m, int nf,
-                            int n_blocks_f, int state_reg, int use_defect, long long* clocks,
-                            void* stream) {
+                            float* dj_lane, int* fail_lane, float* dj_total,
+                            unsigned char* fail_total, unsigned int* lanes_done, int S, int Mb,
+                            int Nb, int n, int m, int nf, int n_blocks_f, int state_reg,
+                            int use_defect, long long* clocks, void* stream) {
   if (n > RIC_NMAX || m > RIC_MMAX || n <= 0 || m <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  if (Mb <= 0 || Nb <= 0) return 0;
+  if (S <= 0 || Mb <= 0 || Nb <= 0) return 0;
+  if (static_cast<long long>(S) * Mb > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
 
   static int optin_bytes[64];            // per device, 0 until asked
   static unsigned char configured[64];   // bit 0: generic body, bit 1: (14, 7)
@@ -425,11 +438,12 @@ extern "C" int pddp_riccati(const float* seedP, const float* seedp, const float*
     if (err != cudaSuccess) return static_cast<int>(err);
     configured[dev] |= bit;
   }
-  err = cudaMemsetAsync(lanes_done, 0, sizeof(unsigned int), static_cast<cudaStream_t>(stream));
+  err = cudaMemsetAsync(lanes_done, 0, sizeof(unsigned int) * S,
+                        static_cast<cudaStream_t>(stream));
   if (err != cudaSuccess) return static_cast<int>(err);
-  kern<<<Mb, RIC_THREADS, bytes, static_cast<cudaStream_t>(stream)>>>(
+  kern<<<S * Mb, RIC_THREADS, bytes, static_cast<cudaStream_t>(stream)>>>(
       seedP, seedp, rho, rho_stride, AB, H, g, d, k, P_out, p_out, K_out, du_out, ApBK_out,
-      Bdu_out, dj_lane, fail_lane, dj_total, fail_total, lanes_done, Nb, n, m, nf, n_blocks_f, state_reg,
-      use_defect, stages, clocks);
+      Bdu_out, dj_lane, fail_lane, dj_total, fail_total, lanes_done, Mb, Nb, n, m, nf,
+      n_blocks_f, state_reg, use_defect, stages, clocks);
   return static_cast<int>(cudaGetLastError());
 }

@@ -16,11 +16,18 @@
 // 3 orders above the roofline.  The first version ran that chain in one
 // thread a lane (~9 us a step).
 //
-// Design: a thread block per (shooting block, chunk of up to 32 alphas) of
-// KG_WARPS warps; lane l of every warp works on alpha l, and the threads with
-// lane l are that rollout lane's group (kuka_soa_group.cuh): the dynamics'
-// roles run side by side in the warps, so a step's chain is the longest role
-// of each stage, not the whole operation count.
+// Scenarios: a batch of S independent problems (a batched solve) adds a
+// scenario axis to the grid's x dimension, scenario-major (S * M blocks fit
+// its 2^31 - 1; the y dimension's 65,535 would cap S): each scenario has its
+// own x_swept, u, K, du and xp, and shares the alphas and the skip mask.  A
+// thread block runs the same program whatever S is, so a scenario's outputs
+// are those of its launch alone, bit for bit.
+//
+// Design: a thread block per (scenario, shooting block, chunk of up to 32
+// alphas) of KG_WARPS warps; lane l of every warp works on alpha l, and the
+// threads with lane l are that rollout lane's group (kuka_soa_group.cuh): the
+// dynamics' roles run side by side in the warps, so a step's chain is the
+// longest role of each stage, not the whole operation count.
 //   * What the alphas of a shooting block share (its K, u, du, xp and skip,
 //     and the chain constants) is staged into shared memory once a block.
 //   * Warp w < 7 owns state elements w and 7 + w of every lane: it keeps
@@ -49,6 +56,16 @@ rollout_kernel(const float* __restrict__ cc_g, const float* __restrict__ x_swept
                const float* __restrict__ alphas, const unsigned char* __restrict__ skip,
                float* __restrict__ xout, float* __restrict__ uout, int n_alpha, int n_blocks,
                int nf, float h, float h_half, float h_sixth) {
+  // this block's scenario: its inputs and outputs
+  const int scen = blockIdx.x / n_blocks;
+  const size_t n_steps = (size_t)n_blocks * nf;
+  x_swept += (size_t)scen * n_alpha * n_steps * (2 * KUKA_NJ);
+  u += (size_t)scen * n_steps * KUKA_NJ;
+  K += (size_t)scen * n_steps * KUKA_NJ * (2 * KUKA_NJ);
+  du += (size_t)scen * n_steps * KUKA_NJ;
+  xp += (size_t)scen * n_steps * (2 * KUKA_NJ);
+  xout += (size_t)scen * n_alpha * n_steps * (2 * KUKA_NJ);
+  uout += (size_t)scen * n_alpha * n_steps * KUKA_NJ;
   extern __shared__ float smem[];
   float* cc = smem;                            // KC_SIZE
   float* ws = cc + KC_SIZE;                    // KG_FIELDS x 32
@@ -59,7 +76,7 @@ rollout_kernel(const float* __restrict__ cc_g, const float* __restrict__ x_swept
   unsigned char* sskip = reinterpret_cast<unsigned char*>(sxp + nf * RO_NS);  // nf
 
   const int lane = threadIdx.x & (KG_LANES - 1), w = threadIdx.x >> 5;
-  const int b = blockIdx.x;
+  const int b = blockIdx.x - scen * n_blocks;
   const int a = blockIdx.y * KG_LANES + lane;
   const bool valid = a < n_alpha;
   const int ac = valid ? a : n_alpha - 1;      // spare lanes repeat the last alpha, store nothing
@@ -166,17 +183,21 @@ rollout_kernel(const float* __restrict__ cc_g, const float* __restrict__ x_swept
   }
 }
 
-// x_swept (A, N, 14), u (N, 7), K (N, 7, 14), du (N, 7), xp (N, 14),
-// alphas (A), skip (M, Nf) bytes -> xout (A, M, Nf, 14), uout (A, M, Nf, 7).
+// S scenarios: x_swept (S, A, N, 14), u (S, N, 7), K (S, N, 7, 14), du (S, N, 7),
+// xp (S, N, 14), and shared alphas (A) and skip (M, Nf) bytes -> xout
+// (S, A, M, Nf, 14), uout (S, A, M, Nf, 7).
 // h, h_half, h_sixth: dt, 0.5*dt and dt/6, rounded to float by the caller.
 // A block stages Nf steps of inputs: cudaErrorInvalidValue where they do not
 // fit its shared memory (Nf > 418).
 extern "C" int pddp_rollout(const float* consts, const float* x_swept, const float* u,
                             const float* K, const float* du, const float* xp,
                             const float* alphas, const unsigned char* skip, float* xout,
-                            float* uout, int n_alpha, int n_blocks, int nf, int integrator,
-                            float h, float h_half, float h_sixth, void* stream) {
-  if (n_alpha <= 0 || n_blocks <= 0 || nf <= 0) return 0;
+                            float* uout, int n_scen, int n_alpha, int n_blocks, int nf,
+                            int integrator, float h, float h_half, float h_sixth, void* stream) {
+  if (n_scen <= 0 || n_alpha <= 0 || n_blocks <= 0 || nf <= 0) return 0;
+  if (static_cast<long long>(n_scen) * n_blocks > 0x7fffffffLL ||
+      (n_alpha + KG_LANES - 1) / KG_LANES > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
   if (integrator < 1 || integrator > 3) return static_cast<int>(cudaErrorInvalidValue);
   const size_t bytes =
       sizeof(float) * (KC_SIZE + KG_FIELDS * KG_LANES + (size_t)nf * RO_STEP_FLOATS) + nf;
@@ -188,7 +209,7 @@ extern "C" int pddp_rollout(const float* consts, const float* x_swept, const flo
                                           static_cast<int>(bytes));
     if (st != cudaSuccess) return static_cast<int>(st);
   }
-  const dim3 grid(n_blocks, (n_alpha + KG_LANES - 1) / KG_LANES);
+  const dim3 grid(n_scen * n_blocks, (n_alpha + KG_LANES - 1) / KG_LANES);
   kern<<<grid, KG_THREADS, bytes, static_cast<cudaStream_t>(stream)>>>(
       consts, x_swept, u, K, du, xp, alphas, skip, xout, uout, n_alpha, n_blocks, nf, h, h_half,
       h_sixth);

@@ -13,7 +13,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from parallel_ddp_tpu_torch.config import CostWeights, SolverConfig
+from parallel_ddp_tpu_torch.config import CostWeights, SolveOutput, SolverConfig
 from parallel_ddp_tpu_torch.models.kuka import soa
 from parallel_ddp_tpu_torch.models.kuka.model import KukaParams
 from parallel_ddp_tpu_torch.mpc.driver import MPCState
@@ -36,7 +36,8 @@ def cost_weights(w) -> CostWeights:
 
 
 def goal(g, device=None) -> dict:
-    """The reference's goal dict ({"ee_goal", "x_target", ...})."""
+    """The reference's goal dict ({"ee_goal", "x_target", ...}), one
+    scenario's or a batch's (a leading B on every leaf)."""
     return {k: tensor(v, device=device) for k, v in g.items()}
 
 
@@ -71,10 +72,17 @@ def kuka_constants(cc) -> soa._Consts:
 
 def mpc_state(st, device=None) -> MPCState:
     """The reference's `MPCState` (x, u, K, P, p, d, t0, fails), so that both
-    packages can start a closed loop from the same state."""
+    packages can start a closed loop from the same state: one controller's
+    (0-d t0 and fails) or a fleet's (every field with a leading B)."""
     return MPCState(
         x=tensor(st.x, device), u=tensor(st.u, device), K=tensor(st.K, device),
         P=tensor(st.P, device), p=tensor(st.p, device), d=tensor(st.d, device),
-        t0=tensor(st.t0, device, torch.float32).reshape(()),
-        fails=tensor(st.fails, device, torch.int32).reshape(()),
+        t0=tensor(st.t0, device, torch.float32),
+        fails=tensor(st.fails, device, torch.int32),
     )
+
+
+def solve_output(out, device=None) -> SolveOutput:
+    """The reference's `SolveOutput` (one solve's, or a batch's with a
+    leading B on every leaf) as this package's."""
+    return SolveOutput(*(None if v is None else tensor(v, device) for v in out))

@@ -23,12 +23,18 @@ The shift index, accept and reset decisions stay on the device
 (`torch.where` and index tensors).  On the CPU a step reads nothing on the
 host beyond the solver's own exit-flag reads (`host_syncs`).  On the card
 `step` replays one CUDA graph that holds the whole step (`graphs.py`;
-captured once per static signature: the state's and goal's shapes, the cost
-weights), the solve's loops as WHILE nodes: it reads nothing on the host, and
-goal, iteration cap and state may change every call without a new capture
-(the reference jits its step the same way).  `init_state` runs its cold
-solve through the solver's own graph.  The fleet entry points
-(`init_state_batch`, `step_batch`) are not ported yet.
+captured once per static signature: the state's and goal's shapes), the
+solve's loops as WHILE nodes: it reads nothing on the host, and goal, cost
+weights (a device tensor of the graph), iteration cap and state may change
+every call without a new capture (the reference jits its step the same
+way).  `init_state` runs its cold solve through the solver's own graph.
+
+A fleet of independent controllers advances in one program:
+`init_state_batch` cold-starts B scenarios with one batched solve and
+`step_batch` steps them all, one graph replay on the card (the reference's
+`jax.vmap` of its step).  The state, measurement, clock and goal carry the
+scenario axis; the weights and the iteration cap are shared.  A single step
+is the same body at B = 1.
 """
 
 from __future__ import annotations
@@ -39,12 +45,13 @@ from typing import NamedTuple, Optional
 import torch
 
 from parallel_ddp_tpu_torch import graphs
-from parallel_ddp_tpu_torch.config import CostWeights, SolverConfig
+from parallel_ddp_tpu_torch.config import CostWeights, SolverConfig, weights_tensor
 from parallel_ddp_tpu_torch.costs.base import CostModel
 from parallel_ddp_tpu_torch.device import as_tensor
 from parallel_ddp_tpu_torch.models.base import Plant
 from parallel_ddp_tpu_torch.ops.cuda_sim_chain import make_sim_chain
 from parallel_ddp_tpu_torch.ops.integrators import make_step
+from parallel_ddp_tpu_torch.parallel.backward import per_scenario_mask
 from parallel_ddp_tpu_torch.solver import make_ilqr_solver, refuse_tf32
 
 
@@ -67,14 +74,15 @@ class MPCConfig:
 
 
 class MPCState(NamedTuple):
+    """One controller's state; a fleet's fields carry a leading B."""
     x: torch.Tensor
     u: torch.Tensor
     K: torch.Tensor
     P: torch.Tensor
     p: torch.Tensor
     d: torch.Tensor
-    t0: torch.Tensor      # plant time of x[0] (seconds), 0-d float32
-    fails: torch.Tensor   # consecutive failed solves, 0-d int32
+    t0: torch.Tensor      # plant time of x[0] (seconds), 0-d float32 ((B,) in a fleet)
+    fails: torch.Tensor   # consecutive failed solves, 0-d int32 ((B,) in a fleet)
 
 
 class MPCStepInfo(NamedTuple):
@@ -96,10 +104,16 @@ def device_scalar(v, device, dtype=torch.float32) -> torch.Tensor:
 
 def _shift(a: torch.Tensor, s) -> torch.Tensor:
     """a[k] <- a[min(k+s, N-1)] (ZOH tail fill, shiftAndCopy semantics);
-    s is an int or a 0-d integer tensor on a's device."""
-    n = a.shape[0]
-    idx = torch.clamp(torch.arange(n, device=a.device) + s, max=n - 1)
-    return a.index_select(0, idx)
+    s is an int or a 0-d integer tensor on a's device that shifts a (N, ...),
+    or one shift a scenario (B,) that shifts each a[b] (B, N, ...) by s[b]
+    (a gather)."""
+    if not (isinstance(s, torch.Tensor) and s.dim()):
+        n = a.shape[0]
+        return a.index_select(0, torch.clamp(torch.arange(n, device=a.device) + s, max=n - 1))
+    n = a.shape[1]
+    idx = torch.clamp(torch.arange(n, device=a.device) + s[:, None], max=n - 1)
+    return torch.take_along_dim(a, idx.reshape(idx.shape + (1,) * (a.dim() - 2)), dim=1)
+
 
 
 class MPCController:
@@ -164,7 +178,28 @@ class MPCController:
             fails=torch.zeros((), dtype=torch.int32, device=x.device),
         )
 
+    def init_state_batch(self, x_actuals, t0s, goals,
+                         weights: Optional[CostWeights] = None,
+                         warmup_iters: int = 50, device=None) -> MPCState:
+        """Cold-start a fleet: one batched full-convergence solve over the
+        scenario axis.  x_actuals (B, n_state), t0s (B,), goals a pytree
+        with a leading B on every tensor leaf.  Returns an MPCState whose
+        fields carry the scenario axis."""
+        x = as_tensor(x_actuals, dtype=torch.float32, device=device)
+        B, n_steps = x.shape[0], self.cfg.num_time_steps
+        x0 = x[:, None].expand(B, n_steps, -1).clone()
+        u0 = x.new_zeros((B, n_steps, self.plant.n_ctrl))
+        out = self._warmup_solver(warmup_iters).solve_batch(x0, u0, goals, weights,
+                                                            initial_rollout=True)
+        return MPCState(
+            x=out.x, u=out.u, K=out.K, P=out.P, p=out.p, d=out.d,
+            t0=torch.as_tensor(t0s, dtype=torch.float32, device=x.device).reshape(B),
+            fails=torch.zeros((B,), dtype=torch.int32, device=x.device),
+        )
+
     def _warm_start(self, st: MPCState, x_actual, s):
+        """Shift and re-rollout, for one controller (s an int or 0-d) or a
+        fleet (every field of st, x_actual and s with a leading B)."""
         x = _shift(st.x, s)
         u = _shift(st.u, s)
         k_mat = _shift(st.K, s)
@@ -175,9 +210,9 @@ class MPCController:
         # controls (rolloutMPC, MPCHelpers.cuh:523-563)
         n_steps, nf = self.cfg.num_time_steps, self.cfg.n_blocks_f
         n_roll = n_steps if self.mpc.full_rollout else nf
-        x_sim = self._chain.open_loop(x_actual, u[:n_roll - 1])
-        x_last = x_sim[-1] if n_roll > 1 else x_actual
-        x = torch.cat([x_actual[None], x_sim, x[n_roll:]])
+        x_sim = self._chain.open_loop(x_actual, u[..., :n_roll - 1, :])
+        x_last = x_sim[..., -1, :] if n_roll > 1 else x_actual
+        x = torch.cat([x_actual[..., None, :], x_sim, x[..., n_roll:, :]], dim=-2)
 
         if self.mpc.full_rollout or self.cfg.m_blocks_f == 1:
             # the whole horizon is one contiguous simulation: zero defects
@@ -188,21 +223,36 @@ class MPCController:
             # boundaries that landed in the ZOH tail (k + s >= N-1) repeat the
             # final state on both sides, so the shifted defect reads zero while
             # the true defect there is step(x[N-1], u[N-1]) - x[N-1]
-            d_tail = self._step(x[n_steps - 1], u[n_steps - 1]) - x[n_steps - 1]
+            last = x[..., n_steps - 1, :]
+            d_tail = self._step(last, u[..., n_steps - 1, :]) - last
             bidx = torch.arange(1, self.cfg.m_blocks_f, device=x.device) * nf - 1
-            in_tail = bidx + s >= n_steps - 1
-            d = d.index_copy(0, bidx, torch.where(in_tail[:, None], d_tail[None, :],
-                                                  d.index_select(0, bidx)))
+            s_b = s[..., None] if isinstance(s, torch.Tensor) else s
+            in_tail = bidx + s_b >= n_steps - 1
+            d = d.index_copy(-2, bidx, torch.where(in_tail[..., None], d_tail[..., None, :],
+                                                   d.index_select(-2, bidx)))
             # the first boundary's defect is exact (block 0 was just
             # re-simulated from the measured state); written LAST so it wins
             # over the tail approximation above
             b0 = nf - 1
-            d[b0] = self._step(x_last, u[b0]) - x[b0 + 1]
+            d[..., b0, :] = self._step(x_last, u[..., b0, :]) - x[..., b0 + 1, :]
         return x, u, k_mat, p_mat, p_vec, d
 
     def _mpc_step(self, st: MPCState, x_actual, t_now, goal, weights, iter_limit):
-        """The step's body (what `step` captures on the card): iter_limit is
-        an int in [1, max_iters_per_solve] or a 0-d integer tensor."""
+        """The step's body (what `step` and `step_batch` capture on the
+        card), for one controller or a fleet (st.x (B, N, n): every input but
+        the weights and the cap with a leading B).  iter_limit is an int in
+        [1, max_iters_per_solve] or a 0-d integer tensor; weights a (21,)
+        tensor or a `CostWeights`."""
+        if st.x.dim() == 2:         # one controller: the fleet's body at B = 1
+            new_state, info = self._fleet_step(
+                MPCState(*(a[None] for a in st)), x_actual[None], t_now.reshape(1), goal,
+                weights, iter_limit, shared_goal=True)
+            return (MPCState(*(a[0] for a in new_state)),
+                    MPCStepInfo(*(None if a is None else a[0] for a in info)))
+        return self._fleet_step(st, x_actual, t_now, goal, weights, iter_limit)
+
+    def _fleet_step(self, st: MPCState, x_actual, t_now, goal, weights, iter_limit,
+                    shared_goal: bool = False):
         dt = self.cfg.dt
         s_f = (t_now - st.t0) / dt
         s = torch.floor(s_f).to(torch.int32)          # MPCHelpers.cuh:875
@@ -213,10 +263,11 @@ class MPCController:
 
         x_w, u_w, k_w, pm_w, pv_w, d_w = self._warm_start(st, x_actual, s)
 
-        out, self._host_syncs = self._solver.run(
+        out, self._host_syncs = self._solver.run_batch(
             x_w, u_w, goal, pm_w, pv_w, d_w, iter_limit, weights,
-            initial_rollout=False, ignore_first_defect=self.mpc.ignore_defect_online)
-        accepted = (out.alpha_trace[1:] >= 0).any()
+            initial_rollout=False, ignore_first_defect=self.mpc.ignore_defect_online,
+            shared_goal=shared_goal)
+        accepted = (out.alpha_trace[:, 1:] >= 0).any(-1)
 
         # failure handling (storeVarsGPU_MPC, MPCHelpers.cuh:752-774): a solve
         # that accepted nothing because there was nothing to improve
@@ -225,23 +276,24 @@ class MPCController:
         ok = accepted | out.converged | out.last_feasible
 
         def pick(new, old):
-            return torch.where(accepted, new, old)
+            return torch.where(per_scenario_mask(accepted, new), new, old)
 
         fails = torch.where(ok, torch.zeros_like(st.fails), st.fails + 1)
         reset = fails >= self.mpc.solves_to_reset
         fails = torch.where(reset, torch.zeros_like(fails), fails)
 
+        def zero_on_reset(arr):
+            return torch.where(per_scenario_mask(reset, arr), torch.zeros_like(arr), arr)
+
         def maybe_zero(arr):
-            if self.mpc.zero_controls_on_reset:
-                return torch.where(reset, torch.zeros_like(arr), arr)
-            return arr
+            return zero_on_reset(arr) if self.mpc.zero_controls_on_reset else arr
 
         new_state = MPCState(
             x=pick(out.x, x_w),
             u=maybe_zero(pick(out.u, u_w)),
             K=maybe_zero(pick(out.K, k_w)),
-            P=torch.where(reset, torch.zeros_like(pm_w), pick(out.P, pm_w)),
-            p=torch.where(reset, torch.zeros_like(pv_w), pick(out.p, pv_w)),
+            P=zero_on_reset(pick(out.P, pm_w)),
+            p=zero_on_reset(pick(out.p, pv_w)),
             d=pick(out.d, d_w),
             t0=t0_new, fails=fails,
         )
@@ -304,16 +356,34 @@ class MPCController:
         x_actual: measured state; t_now: plant clock (s); goal, weights,
         iter_limit and time_limit_ms may change every call (the reference's
         GOAL/COST_PARAMS/SOLVER_PARAMS channels, LCMHelpers.cuh:204-214)."""
-        w = weights if weights is not None else CostWeights()
         dev = st.x.device
-        args = (st, torch.as_tensor(x_actual, dtype=torch.float32, device=dev),
-                device_scalar(t_now, dev), goal,
+        return self._replay_step(
+            st, torch.as_tensor(x_actual, dtype=torch.float32, device=dev),
+            device_scalar(t_now, dev), goal, weights, iter_limit, time_limit_ms)
+
+    def step_batch(self, sts: MPCState, x_actuals, t_nows, goals,
+                   weights: Optional[CostWeights] = None,
+                   iter_limit: Optional[int] = None,
+                   time_limit_ms: Optional[float] = None):
+        """One warm-started budgeted MPC period for a fleet of scenarios:
+        sts (an `init_state_batch` state), x_actuals (B, n_state), t_nows
+        (B,) and goals (a leading B on every tensor leaf) carry the scenario
+        axis; weights and the iteration cap are shared.  On the card one
+        graph replay, keyed by shapes only."""
+        dev = sts.x.device
+        return self._replay_step(
+            sts, torch.as_tensor(x_actuals, dtype=torch.float32, device=dev),
+            torch.as_tensor(t_nows, dtype=torch.float32, device=dev), goals, weights,
+            iter_limit, time_limit_ms)
+
+    def _replay_step(self, st, x, t, goal, weights, iter_limit, time_limit_ms):
+        dev = st.x.device
+        args = (st, x, t, goal, weights_tensor(weights, dev),
                 self._resolve_iter_limit(iter_limit, time_limit_ms))
         if not graphs.replayed(dev):
-            return self._mpc_step(*args[:4], w, args[4])
+            return self._mpc_step(*args)
         refuse_tf32(dev)
-        graph = self.graphs.get(graphs.signature(args, w), lambda st_, x_, t_, g_, cap:
-                                self._mpc_step(st_, x_, t_, g_, w, cap), args)
+        graph = self.graphs.get(graphs.signature(args), self._mpc_step, args)
         out = graph(*args)
         self._host_syncs = 0
         return out

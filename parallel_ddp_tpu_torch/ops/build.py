@@ -44,12 +44,12 @@ _SIGNATURES = {
     # consts, x, u, jac, qdd, ab, batch, dt, stream
     "pddp_rbd_jac": (_P, _P, _P, _P, _P, _P, _I, _F, _P),
     # consts, x_swept, u, K, du, xp, alphas, skip, xout, uout,
-    # n_alpha, n_blocks, nf, integrator, h, h_half, h_sixth, stream
-    "pddp_rollout": (_P,) * 10 + (_I, _I, _I, _I, _F, _F, _F, _P),
+    # n_scen, n_alpha, n_blocks, nf, integrator, h, h_half, h_sixth, stream
+    "pddp_rollout": (_P,) * 10 + (_I, _I, _I, _I, _I, _F, _F, _F, _P),
     # seedP, seedp, rho, rho_stride, AB, H, g, d, k, P, p, K, du, ApBK, Bdu,
-    # dj_lane, fail_lane, dj_total, fail_total, lanes_done, Mb, Nb, n, m, nf,
+    # dj_lane, fail_lane, dj_total, fail_total, lanes_done, S, Mb, Nb, n, m, nf,
     # n_blocks_f, state_reg, use_defect, clocks, stream
-    "pddp_riccati": (_P,) * 3 + (_I,) + (_P,) * 16 + (_I,) * 8 + (_P, _P),
+    "pddp_riccati": (_P,) * 3 + (_I,) + (_P,) * 16 + (_I,) * 9 + (_P, _P),
     # consts, x, u, qdd, batch, stream
     "pddp_qdd": (_P, _P, _P, _P, _I, _P),
     # consts, x0, u, traj_x, traj_u, traj_K, t0, t, xs, t_out, batch, T, n_traj,

@@ -3,16 +3,19 @@
 Twin of `parallel_ddp_tpu/ops/pallas_rollout.py`.  The factory
 `make_kuka_fused_rollout` returns
 
-    fused(x_swept (A,N,n), u (N,m), K (N,m,n), du (N,m), xp (N,n),
-          alphas (A,), skip_mask=None) -> (x_next_all (A,M,Nf,n),
-                                            u_new_all (A,M,Nf,m))
+    fused(x_swept (...,A,N,n), u (...,N,m), K (...,N,m,n), du (...,N,m),
+          xp (...,N,n), alphas (A,), skip_mask=None)
+      -> (x_next_all (...,A,M,Nf,n), u_new_all (...,A,M,Nf,m))
 
-the whole forward simulation of every (alpha, shooting block) lane:
+the whole forward simulation of every (alpha, shooting block) lane, for one
+problem or, with leading scenario dims "...", a batch of independent ones
+that share the alphas and the skip mask:
   * on CPU tensors, the plain version `rollout_plain` — the loop of
     `parallel/forward.py::make_sim_block`, batched over the lanes;
   * on CUDA tensors, the kernel `csrc/rollout.cu` (a group of threads per
-    lane, one in each warp of a thread block that takes one shooting block
-    and up to 32 alphas; a serial loop over the block's steps), or it raises.
+    lane, one in each warp of a thread block that takes one scenario's
+    shooting block and up to 32 alphas; a serial loop over the block's steps;
+    every scenario in one launch), or it raises.
 
 `skip_mask` (M, Nf) marks steps that are not simulated; it defaults to the
 horizon's last step k = N-1 (fpHelpers.cuh:235).
@@ -74,20 +77,28 @@ def kuka_rollout_plain(x_swept, u, K, du, xp, alphas, skip, *, ee_type: int,
                        gravity: float, integrator: int, dt: float, m_blocks: int):
     """Plain version of `kuka_rollout_cuda` (same arguments and outputs): the
     `rollout_plain` loop over the lanes with the soa integrator step."""
-    A, N = x_swept.shape[0], x_swept.shape[1]
+    *lead, A, N, _ = x_swept.shape
+    lead = tuple(lead)
     M = m_blocks
     nf = N // M
+    per_scen = lambda t, *tail: t.reshape(lead + (1, M, nf) + tail)
     return rollout_plain(
         _kuka_step(ee_type, float(gravity), integrator, dt),
-        x_swept.reshape(A, M, nf, NS)[:, :, 0], u.reshape(M, nf, NJ),
-        K.reshape(M, nf, NJ, NS), du.reshape(M, nf, NJ), xp.reshape(M, nf, NS),
+        x_swept.reshape(lead + (A, M, nf, NS))[..., 0, :], per_scen(u, NJ),
+        per_scen(K, NJ, NS), per_scen(du, NJ), per_scen(xp, NS),
         alphas.to(x_swept.dtype)[:, None], skip.to(torch.bool))
 
 
 def kuka_rollout_cuda(x_swept, u, K, du, xp, alphas, skip, *, ee_type: int,
                       gravity: float, integrator: int, dt: float, m_blocks: int):
-    """Launch the rollout kernel.  skip is (M, Nf) uint8; the rest float32."""
-    A, N = x_swept.shape[0], x_swept.shape[1]
+    """Launch the rollout kernel on S = prod(...) scenarios: x_swept
+    (..., A, N, 14), u (..., N, 7) etc.; alphas (A,) and skip (M, Nf) uint8
+    shared; float32."""
+    *lead, A, N, _ = x_swept.shape
+    lead = tuple(lead)
+    S = 1
+    for d in lead:
+        S *= d
     M = m_blocks
     if N % M:
         raise ValueError(f"horizon {N} not divisible into {M} shooting blocks")
@@ -95,11 +106,11 @@ def kuka_rollout_cuda(x_swept, u, K, du, xp, alphas, skip, *, ee_type: int,
     if nf > MAX_BLOCK_STEPS:
         raise ValueError(f"{nf} steps a shooting block: the rollout kernel stages at most "
                          f"{MAX_BLOCK_STEPS} in a thread block's shared memory (use more blocks)")
-    build.check_input("x_swept", x_swept, (A, N, NS))
-    build.check_input("u", u, (N, NJ))
-    build.check_input("K", K, (N, NJ, NS))
-    build.check_input("du", du, (N, NJ))
-    build.check_input("xp", xp, (N, NS))
+    build.check_input("x_swept", x_swept, lead + (A, N, NS))
+    build.check_input("u", u, lead + (N, NJ))
+    build.check_input("K", K, lead + (N, NJ, NS))
+    build.check_input("du", du, lead + (N, NJ))
+    build.check_input("xp", xp, lead + (N, NS))
     build.check_input("alphas", alphas, (A,))
     build.check_input("skip", skip, (M, nf), torch.uint8)
     for t in (u, K, du, xp, alphas, skip):
@@ -107,14 +118,14 @@ def kuka_rollout_cuda(x_swept, u, K, du, xp, alphas, skip, *, ee_type: int,
             raise ValueError("all rollout inputs must be on one device")
     if integrator not in (1, 2, 3):
         raise ValueError(f"unknown integrator {integrator}")
-    xout = torch.empty((A, M, nf, NS), device=x_swept.device, dtype=torch.float32)
-    uout = torch.empty((A, M, nf, NJ), device=x_swept.device, dtype=torch.float32)
+    xout = torch.empty(lead + (A, M, nf, NS), device=x_swept.device, dtype=torch.float32)
+    uout = torch.empty(lead + (A, M, nf, NJ), device=x_swept.device, dtype=torch.float32)
     cc = consts_tensor(ee_type, float(gravity), x_swept.device)
     build.launch(
         "pddp_rollout", x_swept.device,
         cc.data_ptr(), x_swept.data_ptr(), u.data_ptr(), K.data_ptr(),
         du.data_ptr(), xp.data_ptr(), alphas.data_ptr(), skip.data_ptr(),
-        xout.data_ptr(), uout.data_ptr(), A, M, nf, integrator,
+        xout.data_ptr(), uout.data_ptr(), S, A, M, nf, integrator,
         dt, 0.5 * dt, dt / 6.0)
     kuka_rollout_cuda.counter.hit(x_swept.device)
     return xout, uout

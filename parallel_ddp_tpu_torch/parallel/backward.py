@@ -20,6 +20,9 @@ op (`ops/cuda_riccati.py`); otherwise the sweep is the per-step loop below.
 The rho-retry loop is a `graphs.while_loop`: a WHILE node of the graph being
 captured on the card (the device decides how many attempts run), a host loop
 on the CPU that reads its exit flag once per attempt.
+
+A batch of scenarios is a leading axis on every input: seeds, blocks, rho
+and the retry state get it, and the sweep's lanes are scenarios x blocks.
 """
 
 from __future__ import annotations
@@ -34,6 +37,7 @@ from parallel_ddp_tpu_torch.ops.linalg import chol_solve_unrolled
 
 
 class BackwardPassResult(NamedTuple):
+    """One problem's, or with a leading scenario axis, each scenario's."""
     P: torch.Tensor      # (N, n, n) cost-to-go Hessian at each step
     p: torch.Tensor      # (N, n) cost-to-go gradient
     K: torch.Tensor      # (N, m, n) feedback gains (row N-1 zero)
@@ -140,7 +144,8 @@ def make_riccati_step(cfg: SolverConfig, n: int, m: int):
 def run_block(step, rho, seed_P, seed_p, ab_b, H_b, g_b, d_b, k_b):
     """Serial Riccati sweep of time blocks, k descending (backPassKern's
     in-block recursion), batched over leading lane dims: ab_b (..., Nb, n, n+m)
-    etc.  Returns the per-step outputs in ascending k, (..., Nb, ...)."""
+    etc.; k_b (..., Nb) may leave out leading lane dims it shares.  Returns the
+    per-step outputs in ascending k, (..., Nb, ...)."""
     carry = (seed_P, seed_p)
     outs = []
     for t in reversed(range(ab_b.shape[-3])):
@@ -148,25 +153,33 @@ def run_block(step, rho, seed_P, seed_p, ab_b, H_b, g_b, d_b, k_b):
                                      g_b[..., t, :], d_b[..., t, :], k_b[..., t]))
         outs.append(o)
     outs.reverse()
-    lane_dims = k_b.dim() - 1
+    lane_dims = ab_b.dim() - 3
     return tuple(torch.stack(field, dim=lane_dims) for field in zip(*outs))
+
+
+def per_scenario_mask(mask, t):
+    """A flag per scenario, mask (...), broadcast against t (..., more dims)."""
+    return mask.reshape(mask.shape + (1,) * (t.dim() - mask.dim()))
 
 
 def backward_pass(
     cfg: SolverConfig,
-    AB: torch.Tensor,    # (N-1, n, n+m)
-    H: torch.Tensor,     # (N, n+m, n+m)
-    g: torch.Tensor,     # (N, n+m)
-    Pp: torch.Tensor,    # (N, n, n) previous-iteration CTG (block boundary seeds)
-    pp: torch.Tensor,    # (N, n)
-    d: torch.Tensor,     # (N, n) defects
-    x: torch.Tensor,     # (N, n) current trajectory
-    xp2: torch.Tensor,   # (N, n) trajectory at which Pp/pp were computed
-    rho0: torch.Tensor,
-    drho0: torch.Tensor,
+    AB: torch.Tensor,    # (..., N-1, n, n+m)
+    H: torch.Tensor,     # (..., N, n+m, n+m)
+    g: torch.Tensor,     # (..., N, n+m)
+    Pp: torch.Tensor,    # (..., N, n, n) previous-iteration CTG (block boundary seeds)
+    pp: torch.Tensor,    # (..., N, n)
+    d: torch.Tensor,     # (..., N, n) defects
+    x: torch.Tensor,     # (..., N, n) current trajectory
+    xp2: torch.Tensor,   # (..., N, n) trajectory at which Pp/pp were computed
+    rho0: torch.Tensor,  # (...)
+    drho0: torch.Tensor,  # (...)
 ) -> BackwardPassResult:
     """Full backward pass with the rho-retry loop (backwardPassGPU,
-    bpHelpers.cuh:483-517)."""
+    bpHelpers.cuh:483-517), for one problem or, with leading scenario dims
+    "...", a batch of independent ones (the reference's vmap over its
+    while_loop): each scenario retries under its own fail & (tries < max),
+    and the loop runs while any scenario still does."""
     if cfg.bp_assoc_scan:
         raise NotImplementedError(
             "bp_assoc_scan (the associative-scan backward pass) is not ported")
@@ -176,26 +189,27 @@ def backward_pass(
     n = x.shape[-1]
     m = AB.shape[-1] - n
     nf = N - 1
+    lead = AB.shape[:-3]
 
     # pad AB with a zero row at k = N-1 so every block has Nb uniform steps
-    AB_pad = torch.cat([AB, torch.zeros((1, n, n + m), dtype=AB.dtype, device=AB.device)])
+    AB_pad = torch.cat([AB, AB.new_zeros(lead + (1, n, n + m))], dim=-3)
 
     # block seeds: the final block starts from the terminal expansion
     # (bpHelpers.cuh:361-367), the others from the previous iteration's
     # cost-to-go at their boundary k = (b+1)*Nb, optionally transported through
     # the state change (linearXfrmOrLoad, bpHelpers.cuh:16-34)
-    P_seed = Pp[Nb:N:Nb]
-    p_seed = pp[Nb:N:Nb]
+    P_seed = Pp[..., Nb:N:Nb, :, :]
+    p_seed = pp[..., Nb:N:Nb, :]
     if cfg.linear_transform_switch:
-        dx = x[Nb:N:Nb] - xp2[Nb:N:Nb]
+        dx = x[..., Nb:N:Nb, :] - xp2[..., Nb:N:Nb, :]
         p_seed = p_seed + (P_seed @ dx[..., None])[..., 0]
-    seeds_P = torch.cat([P_seed, H[nf, :n, :n][None]])
-    seeds_p = torch.cat([p_seed, g[nf, :n][None]])
+    seeds_P = torch.cat([P_seed, H[..., nf, None, :n, :n]], dim=-3)
+    seeds_p = torch.cat([p_seed, g[..., nf, None, :n]], dim=-2)
 
-    AB_blk = AB_pad.reshape(Mb, Nb, n, n + m)
-    H_blk = H.reshape(Mb, Nb, n + m, n + m)
-    g_blk = g.reshape(Mb, Nb, n + m)
-    d_blk = d.reshape(Mb, Nb, n)
+    AB_blk = AB_pad.reshape(lead + (Mb, Nb, n, n + m))
+    H_blk = H.reshape(lead + (Mb, Nb, n + m, n + m))
+    g_blk = g.reshape(lead + (Mb, Nb, n + m))
+    d_blk = d.reshape(lead + (Mb, Nb, n))
     k_blk = torch.arange(N, device=x.device).reshape(Mb, Nb)
 
     if cfg.pallas_riccati:
@@ -210,34 +224,36 @@ def backward_pass(
         step = make_riccati_step(cfg, n, m)
 
         def attempt(rho):
-            outs = run_block(step, rho, seeds_P, seeds_p, AB_blk, H_blk, g_blk,
+            outs = run_block(step, rho[..., None], seeds_P, seeds_p, AB_blk, H_blk, g_blk,
                              d_blk, k_blk)
             P_o, p_o, K_o, du_o, ApBK_o, Bdu_o, dj_o, fail_o = outs
-            flat = lambda a: a.reshape((N,) + a.shape[2:])
+            flat = lambda a: a.reshape(lead + (N,) + a.shape[len(lead) + 2:])
             return (flat(P_o), flat(p_o), flat(K_o), flat(du_o), flat(ApBK_o),
-                    flat(Bdu_o), dj_o.sum(dim=(0, 1)), fail_o.any())
+                    flat(Bdu_o), dj_o.sum(dim=(-3, -2)), fail_o.any(-1).any(-1))
 
     # rho-retry loop (backwardPassGPU, bpHelpers.cuh:489-515; the reference
     # package's retry_cond / retry_body) with a safety cap.  The first
     # attempt's outputs, rho and drho are the loop's state: each retry
-    # commits under `go`, so a retry that was not needed changes nothing.
+    # commits under its scenario's fail & (tries < max), so a retry that
+    # was not needed changes nothing.
     out = list(attempt(rho0))
     rho, drho = rho0.clone(), drho0.clone()
-    tries = torch.zeros((), dtype=torch.int32, device=x.device)
+    tries = torch.zeros(lead, dtype=torch.int32, device=x.device)
 
-    def retry_cond():
+    def retrying():
         return torch.logical_and(out[7], tries < cfg.max_bp_retries)
 
-    def retry_body(go):
+    def retry_body(_):
+        go = retrying()
         drho_new = torch.clamp(drho * cfg.rho_factor, min=cfg.rho_factor)
         rho_new = torch.clamp(rho * drho_new, max=cfg.rho_max)
         for held, new in zip(out, attempt(rho_new)):
-            held.copy_(torch.where(go, new, held))
+            held.copy_(torch.where(per_scenario_mask(go, held), new, held))
         drho.copy_(torch.where(go, drho_new, drho))
         rho.copy_(torch.where(go, rho_new, rho))
         tries.add_(go.to(torch.int32))
 
-    syncs = graphs.while_loop(retry_cond, retry_body, cfg.max_bp_retries)
+    syncs = graphs.while_loop(lambda: retrying().any(), retry_body, cfg.max_bp_retries)
     P_o, p_o, K_o, du_o, ApBK_o, Bdu_o, dJexp, fail = out
     return BackwardPassResult(P_o, p_o, K_o, du_o, ApBK_o, Bdu_o, dJexp, fail,
                               rho, drho, syncs)

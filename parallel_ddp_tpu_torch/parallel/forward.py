@@ -11,6 +11,10 @@
   * per-alpha COST and DEFECT reductions are batched reductions;
   * the LINE SEARCH over alphas (fpHelpers.cuh:395-408) is a masked argmax
     that stays on the device.
+
+Every function takes one problem or, with leading scenario dims "..." on its
+trajectories and gains, a batch of independent ones that share the alphas;
+the line search reduces over the alpha axis only.
 """
 
 from __future__ import annotations
@@ -49,31 +53,37 @@ def make_sim_block(step_fn: Callable, nf: int):
 
 def forward_sweep(
     cfg: SolverConfig,
-    ApBK: torch.Tensor,   # (N, n, n)
-    Bdu: torch.Tensor,    # (N, n)
-    d: torch.Tensor,      # (N, n)
-    x: torch.Tensor,      # (N, n) accepted trajectory
-    xp: torch.Tensor,     # (N, n) previous trajectory (kept for parity)
+    ApBK: torch.Tensor,   # (..., N, n, n)
+    Bdu: torch.Tensor,    # (..., N, n)
+    d: torch.Tensor,      # (..., N, n)
+    x: torch.Tensor,      # (..., N, n) accepted trajectory
+    xp: torch.Tensor,     # (..., N, n) previous trajectory (kept for parity)
     alphas: torch.Tensor,  # (A,)
 ) -> torch.Tensor:
-    """x_swept per alpha: (A, N, n), with e_0 = 0 and
-    e_{k+1} = ApBK_k e_k + c_k(alpha), c_k = -alpha*Bdu_k + 1{boundary}(k) d_k."""
+    """x_swept per alpha: (..., A, N, n), with e_0 = 0 and
+    e_{k+1} = ApBK_k e_k + c_k(alpha), c_k = -alpha*Bdu_k + 1{boundary}(k) d_k.
+    The scenarios of a batch are one `baddbmm` a step."""
     N = cfg.num_time_steps
+    lead = x.shape[:-2]
     n = x.shape[-1]
     A = alphas.shape[0]
-    c = -alphas[None, :, None] * Bdu[:-1, None, :]            # (N-1, A, n)
+    c = -alphas[:, None] * Bdu[..., :-1, None, :]              # (..., N-1, A, n)
     # defect boundaries: k = b*Nf - 1 for b = 1..M-1 (k < N-1)
     nb = cfg.n_blocks_f
-    c[nb - 1:N - 1:nb] = c[nb - 1:N - 1:nb] + d[nb - 1:N - 1:nb, None, :]
-    e = torch.zeros((A, n), dtype=x.dtype, device=x.device)
+    c[..., nb - 1:N - 1:nb, :, :] = (c[..., nb - 1:N - 1:nb, :, :]
+                                     + d[..., nb - 1:N - 1:nb, None, :])
+    c = c.reshape((-1, N - 1, A, n))
+    ApBK_t = ApBK.reshape((-1, N, n, n)).mT
+    e = x.new_zeros((c.shape[0], A, n))
     es = [e]
     for k in range(N - 1):
-        e = torch.addmm(c[k], e, ApBK[k].mT)
+        e = torch.baddbmm(c[:, k], e, ApBK_t[:, k])
         es.append(e)
-    return x[None] + torch.stack(es, dim=1)
+    return x[..., None, :, :] + torch.stack(es, dim=2).reshape(lead + (A, N, n))
 
 
 class RolloutResult(NamedTuple):
+    """One problem's; a batch's fields carry its leading scenario dims."""
     x: torch.Tensor      # (A, N, n) candidate trajectories
     u: torch.Tensor      # (A, N, m) candidate controls
     d: torch.Tensor      # (A, N, n) candidate defects (nonzero on boundaries)
@@ -90,12 +100,12 @@ def _total_cost(stage_cost, x_cand, u_cand):
 def multiple_shooting_rollout(
     cfg: SolverConfig,
     step_fn: Callable,
-    stage_cost: Callable,   # (x (..., n), u (..., m), k (...)) -> (...)
-    x_swept: torch.Tensor,  # (A, N, n)
-    u: torch.Tensor,        # (N, m)
-    K: torch.Tensor,        # (N, m, n)
-    du: torch.Tensor,       # (N, m)
-    xp: torch.Tensor,       # (N, n)
+    stage_cost: Callable,   # (x (..., A, N, n), u (..., A, N, m), k (N,)) -> (..., A, N)
+    x_swept: torch.Tensor,  # (..., A, N, n)
+    u: torch.Tensor,        # (..., N, m)
+    K: torch.Tensor,        # (..., N, m, n)
+    du: torch.Tensor,       # (..., N, m)
+    xp: torch.Tensor,       # (..., N, n)
     alphas: torch.Tensor,   # (A,)
     fused_sim: Optional[Callable] = None,
 ) -> RolloutResult:
@@ -108,31 +118,33 @@ def multiple_shooting_rollout(
     n = x_swept.shape[-1]
     m = u.shape[-1]
     A = alphas.shape[0]
+    lead = u.shape[:-2]
 
-    xs_blk = x_swept.reshape(A, M, Nf, n)
+    xs_blk = x_swept.reshape(lead + (A, M, Nf, n))
     if fused_sim is not None:
         x_next_all, u_new_all = fused_sim(x_swept, u, K, du, xp, alphas)
     else:
         sim_block = make_sim_block(step_fn, N - 1)
         k_blk = torch.arange(N, device=u.device).reshape(M, Nf)
+        per_scen = lambda t, *tail: t.reshape(lead + (1, M, Nf) + tail)
         x_next_all, u_new_all = sim_block(
-            alphas[:, None], xs_blk[:, :, 0], u.reshape(M, Nf, m),
-            K.reshape(M, Nf, m, n), du.reshape(M, Nf, m), xp.reshape(M, Nf, n),
-            k_blk)
-    # x_next_all: (A, M, Nf, n); u_new_all: (A, M, Nf, m)
+            alphas[:, None], xs_blk[..., 0, :], per_scen(u, m), per_scen(K, m, n),
+            per_scen(du, m), per_scen(xp, n), k_blk)
+    # x_next_all: (..., A, M, Nf, n); u_new_all: (..., A, M, Nf, m)
 
     # candidate trajectory: block starts from the sweep, interior from the sim
-    x_cand = torch.cat([xs_blk[:, :, :1], x_next_all[:, :, :-1]], dim=2).reshape(A, N, n)
-    u_cand = u_new_all.reshape(A, N, m)
+    x_cand = torch.cat([xs_blk[..., :1, :], x_next_all[..., :-1, :]], dim=-2).reshape(
+        lead + (A, N, n))
+    u_cand = u_new_all.reshape(lead + (A, N, m))
 
-    d_cand = torch.zeros((A, N, n), dtype=x_swept.dtype, device=x_swept.device)
+    d_cand = x_swept.new_zeros(lead + (A, N, n))
     if M > 1:
-        d_boundary = x_next_all[:, :-1, -1] - xs_blk[:, 1:, 0]     # (A, M-1, n)
-        d_cand[:, Nf - 1:N - 1:Nf] = d_boundary
+        d_boundary = x_next_all[..., :-1, -1, :] - xs_blk[..., 1:, 0, :]   # (..., A, M-1, n)
+        d_cand[..., Nf - 1:N - 1:Nf, :] = d_boundary
         # max-abs defect metric (defectKern, fpHelpers.cuh:94-111)
         max_defect = d_boundary.abs().sum(-1).amax(-1)
     else:
-        max_defect = torch.zeros((A,), dtype=x_swept.dtype, device=x_swept.device)
+        max_defect = x_swept.new_zeros(lead + (A,))
 
     J = _total_cost(stage_cost, x_cand, u_cand)
     return RolloutResult(x_cand, u_cand, d_cand, J, max_defect)
@@ -152,17 +164,17 @@ def slq_rollout(
 ) -> RolloutResult:
     """SLQ forward pass: roll the LINEARIZED dynamics (forwardSimSLQInner,
     fpHelpers.cuh:573-632); no defects (single shooting)."""
-    A = alphas.shape[0]
     x_cand = forward_sweep(cfg, ApBK, Bdu, torch.zeros_like(x), x, xp, alphas)
-    dx = x_cand - xp[None]
-    u_cand = (u[None] - alphas[:, None, None] * du[None]
-              - torch.einsum("kmn,akn->akm", K, dx))
+    dx = x_cand - xp[..., None, :, :]
+    u_cand = (u[..., None, :, :] - alphas[:, None, None] * du[..., None, :, :]
+              - torch.einsum("...kmn,...akn->...akm", K, dx))
     J = _total_cost(stage_cost, x_cand, u_cand)
-    zeros = torch.zeros((A,), dtype=x.dtype, device=x.device)
+    zeros = x.new_zeros(J.shape)
     return RolloutResult(x_cand, u_cand, torch.zeros_like(x_cand), J, zeros)
 
 
 class LineSearchResult(NamedTuple):
+    """One problem's (0-d fields); a batch's carry its scenario dims."""
     accept: torch.Tensor      # bool
     alpha_idx: torch.Tensor   # int (0 if rejected)
     J: torch.Tensor           # selected cost (prevJ if rejected)
@@ -177,38 +189,40 @@ class LineSearchResult(NamedTuple):
 
 def line_search(
     cfg: SolverConfig,
-    J: torch.Tensor,           # (A,)
-    max_defect: torch.Tensor,  # (A,)
+    J: torch.Tensor,           # (..., A)
+    max_defect: torch.Tensor,  # (..., A)
     alphas: torch.Tensor,      # (A,)
-    dJexp: torch.Tensor,       # (2,)
-    prevJ: torch.Tensor,
-    ignore_defect: torch.Tensor,
+    dJexp: torch.Tensor,       # (..., 2)
+    prevJ: torch.Tensor,       # (...)
+    ignore_defect: torch.Tensor,  # (...)
 ) -> LineSearchResult:
     """Accept the best (or first) alpha passing the J/z/defect tests
-    (forwardSimGPU line-search scan, fpHelpers.cuh:395-408)."""
-    cdJ = prevJ - J
+    (forwardSimGPU line-search scan, fpHelpers.cuh:395-408), per scenario:
+    every reduction runs over the alpha axis only."""
+    cdJ = prevJ[..., None] - J
     j_ok = cdJ >= 0.0
-    expected = alphas * dJexp[0] + 0.5 * alphas * alphas * dJexp[1]
+    expected = alphas * dJexp[..., :1] + 0.5 * alphas * alphas * dJexp[..., 1:]
     z = cdJ / expected
     if cfg.use_exp_red:
         z_ok = torch.logical_and(z > cfg.exp_red_min, z < cfg.exp_red_max)
     else:
         z_ok = torch.ones_like(j_ok)
     if cfg.m_blocks_f > 1 and cfg.use_max_defect:
-        d_ok = torch.logical_or(ignore_defect, max_defect < cfg.max_defect_size)
+        d_ok = torch.logical_or(ignore_defect[..., None], max_defect < cfg.max_defect_size)
     else:
         d_ok = torch.ones_like(j_ok)
     valid = j_ok & z_ok & d_ok
 
-    accept = valid.any()
+    accept = valid.any(-1)
     if cfg.alpha_best_switch:
         score = torch.where(valid, cdJ, torch.full_like(cdJ, -torch.inf))
-        idx = torch.argmax(score)
+        idx = torch.argmax(score, dim=-1)
     else:
-        idx = torch.argmax(valid.to(torch.int32))  # first valid
+        idx = torch.argmax(valid.to(torch.int32), dim=-1)  # first valid
     idx = torch.where(accept, idx, torch.zeros_like(idx))
+    at = lambda a: a.gather(-1, idx[..., None])[..., 0]
 
-    sel_d = max_defect.gather(0, idx.reshape(1))[0]
+    sel_d = at(max_defect)
     new_ignore = torch.where(
         torch.logical_and(accept, sel_d < cfg.max_defect_size),
         torch.zeros_like(ignore_defect),
@@ -218,13 +232,13 @@ def line_search(
     return LineSearchResult(
         accept=accept,
         alpha_idx=idx,
-        J=torch.where(accept, J.gather(0, idx.reshape(1))[0], prevJ),
-        dJ=torch.where(accept, cdJ.gather(0, idx.reshape(1))[0], -torch.ones_like(prevJ)),
-        z=torch.where(accept, z.gather(0, idx.reshape(1))[0], torch.zeros_like(prevJ)),
+        J=torch.where(accept, at(J), prevJ),
+        dJ=torch.where(accept, at(cdJ), -torch.ones_like(prevJ)),
+        z=torch.where(accept, at(z), torch.zeros_like(prevJ)),
         max_defect=sel_d,
         ignore_defect=new_ignore,
-        best_dJ_frac=cdJ.max() / torch.clamp(prevJ, min=tiny),
-        any_feasible=(j_ok & d_ok).any(),
+        best_dJ_frac=cdJ.amax(-1) / torch.clamp(prevJ, min=tiny),
+        any_feasible=(j_ok & d_ok).any(-1),
     )
 
 
@@ -249,7 +263,7 @@ def forward_pass(
     if cfg.m_blocks_f > 1:
         x_swept = forward_sweep(cfg, ApBK, Bdu, d, x, xp, alphas)
     else:
-        x_swept = x[None].expand((alphas.shape[0],) + tuple(x.shape))
+        x_swept = x[..., None, :, :].expand(x.shape[:-2] + (alphas.shape[0],) + x.shape[-2:])
     return multiple_shooting_rollout(
         cfg, step_fn, stage_cost, x_swept, u, K, du, xp, alphas,
         fused_sim=fused_sim,

@@ -9,7 +9,11 @@ array goes to the card, `device.default_device()`, unless the call names a
 `device`).  Like the reference package's `lax.while_loop`, the iteration is
 one body (`_Solver._iteration`) that commits every result under
 active = ~done & (it <= cap), so it can run past the end of a solve and
-change nothing.  Two loops run it:
+change nothing.  The body works on a batch of B independent scenarios (the
+reference's `jax.vmap` over its while_loop): every field of the carry has a
+leading scenario axis, each scenario commits under its own active flag, and
+the loop runs while any scenario is active.  A single solve is the same body
+at B = 1, the axis added and taken off at the entry point.  Two loops run it:
   * on the CPU, a host loop that reads the exit flag once per iteration but
     the last one the budget allows, plus once per rho attempt inside the
     backward pass (`solver.host_syncs` holds the count of the last solve);
@@ -24,30 +28,54 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+from torch.utils import _pytree as pytree
 
 from parallel_ddp_tpu_torch import graphs
-from parallel_ddp_tpu_torch.config import CostWeights, SolveOutput, SolverConfig
+from parallel_ddp_tpu_torch.config import (CostWeights, SolveOutput, SolverConfig, weights_of,
+                                           weights_tensor)
 from parallel_ddp_tpu_torch.costs.base import CostModel
 from parallel_ddp_tpu_torch.device import as_tensor
 from parallel_ddp_tpu_torch.models.base import Plant
 from parallel_ddp_tpu_torch.ops.cuda_sim_chain import make_sim_chain
 from parallel_ddp_tpu_torch.ops.integrators import make_step, make_step_jacobian
-from parallel_ddp_tpu_torch.parallel.backward import backward_pass
+from parallel_ddp_tpu_torch.parallel.backward import backward_pass, per_scenario_mask
 from parallel_ddp_tpu_torch.parallel.forward import forward_pass, line_search
+
+
+def goal_dims(goal):
+    """The vmap in_dims of a batch's goal pytree: the leading axis of every
+    tensor leaf (an `x_target` may be per knot, (B, N, n): no leaf is
+    reshaped)."""
+    return pytree.tree_map(lambda leaf: 0 if isinstance(leaf, torch.Tensor) else None, goal)
+
+
+def per_scenario(fn, dims):
+    """A cost function fn(x, u, k, goal, w) over x and u with a leading
+    scenario axis: one call when every scenario shares the goal (dims None;
+    the costs take any leading dims), else `torch.func.vmap` over the goal's
+    leading axis too (dims from `goal_dims`)."""
+    if dims is None:
+        return fn
+    return torch.func.vmap(fn, in_dims=(0, 0, None, dims, None))
 
 
 def _derivatives(cfg, step_jac, cost_quad, x, u, goal, w):
     """Next-iteration setup: AB/H/g at the accepted trajectory over the whole
     time axis (integratorGradientKern + costGradientHessianKern,
-    nisInitHelpers.cuh:245-279).
+    nisInitHelpers.cuh:245-279), for x (..., N, n): the leading scenario
+    dims are flattened into the dynamics' sample axis.
 
     `step_jac` is either a per-sample jac (vmapped here) or an already-batched
-    (N-1, n)-in (N-1, n, n+m)-out function (Plant.batched_step_jac — the
+    (S, n)-in (S, n, n+m)-out function (Plant.batched_step_jac — the
     RBD-Jacobian op on the main path), marked with `_is_batched`."""
+    n, m = x.shape[-1], u.shape[-1]
+    xs = x[..., :-1, :].reshape(-1, n)
+    us = u[..., :-1, :].reshape(-1, m)
     if getattr(step_jac, "_is_batched", False):
-        AB = step_jac(x[:-1], u[:-1])
+        AB = step_jac(xs, us)
     else:
-        AB = torch.func.vmap(step_jac)(x[:-1], u[:-1])
+        AB = torch.func.vmap(step_jac)(xs, us)
+    AB = AB.reshape(x.shape[:-2] + (cfg.num_time_steps - 1,) + AB.shape[-2:])
     ks = torch.arange(cfg.num_time_steps, device=x.device)
     H, g = cost_quad(x, u, ks, goal, w)
     return AB, H, g
@@ -55,18 +83,19 @@ def _derivatives(cfg, step_jac, cost_quad, x, u, goal, w):
 
 def open_loop_rollout(cfg: SolverConfig, open_loop, x0_state, u):
     """Multiple-shooting open-loop rollout from the block-start states in
-    x0_state (the initial `forwardSimKern` rollout, nisInitHelpers.cuh:643):
-    every block's Nf steps as one call of `open_loop`, a `SimChain.open_loop`
-    (`make_sim_chain(plant, integrator, dt).open_loop`).  Returns (x, d)."""
+    x0_state (..., N, n) (the initial `forwardSimKern` rollout,
+    nisInitHelpers.cuh:643): every block's Nf steps as one call of
+    `open_loop`, a `SimChain.open_loop` (`make_sim_chain(plant, integrator,
+    dt).open_loop`).  Returns (x, d)."""
     N, M, Nf = cfg.num_time_steps, cfg.m_blocks_f, cfg.n_blocks_f
-    n = x0_state.shape[-1]
-    x_blk = x0_state.reshape(M, Nf, n)
-    u_blk = u.reshape(M, Nf, -1)
-    x_next = open_loop(x_blk[:, 0], u_blk)                         # (M, Nf, n)
-    x_new = torch.cat([x_blk[:, :1], x_next[:, :-1]], dim=1).reshape(N, n)
-    d = torch.zeros((N, n), dtype=x0_state.dtype, device=x0_state.device)
+    lead, n = x0_state.shape[:-2], x0_state.shape[-1]
+    x_blk = x0_state.reshape(lead + (M, Nf, n))
+    u_blk = u.reshape(lead + (M, Nf, u.shape[-1]))
+    x_next = open_loop(x_blk[..., 0, :], u_blk)                      # (..., M, Nf, n)
+    x_new = torch.cat([x_blk[..., :1, :], x_next[..., :-1, :]], dim=-2).reshape(lead + (N, n))
+    d = x0_state.new_zeros(lead + (N, n))
     if M > 1:
-        d[Nf - 1:N - 1:Nf] = x_next[:-1, -1] - x_blk[1:, 0]
+        d[..., Nf - 1:N - 1:Nf, :] = x_next[..., :-1, -1, :] - x_blk[..., 1:, 0, :]
     return x_new, d
 
 
@@ -84,42 +113,46 @@ class _Carry:
     """The solve's state across iterations: the reference's `_Carry`, held in
     tensors that `_iteration` updates in place (a captured loop body can
     only hand its results on through memory written before the loop).
-    AB/H/g are not carried: each iteration computes them first.  The
-    reference's xp is always x, and its Pp/pp always P/p."""
+    Every field has a leading scenario axis B.  AB/H/g are not carried: each
+    iteration computes them first.  The reference's xp is always x, and its
+    Pp/pp always P/p.  `goal_dims` says how the goal maps onto the scenarios
+    (`per_scenario`)."""
 
     FIELDS = ("x", "u", "d", "xp2", "P", "p", "K", "du", "prevJ", "rho", "drho",
               "ignore_defect", "it", "done", "converged", "feasible", "J_trace",
               "alpha_trace", "defect_trace", "max_defect")
 
-    def __init__(self, **fields):
+    def __init__(self, goal_dims=None, **fields):
+        self.goal_dims = goal_dims
         for name in self.FIELDS:
             setattr(self, name, fields[name])
 
     def commit(self, name, where, value):
-        """field <- value where `where` holds (in place)."""
+        """field[b] <- value[b] where where[b] (in place)."""
         held = getattr(self, name)
-        held.copy_(torch.where(where, value, held))
+        held.copy_(torch.where(per_scenario_mask(where, held), value, held))
 
     def record(self, name, where, value):
-        """trace[it] <- value where `where` holds (in place, at the device
+        """trace[b, it[b]] <- value[b] where where[b] (in place, at the device
         index it, clamped to the trace so a spent solve writes nothing)."""
         trace = getattr(self, name)
-        idx = torch.clamp(self.it, max=trace.shape[0] - 1).to(torch.int64).reshape(1)
-        held = trace.index_select(0, idx)
-        trace.index_copy_(0, idx, torch.where(where, value.reshape(1).to(trace.dtype), held))
+        idx = torch.clamp(self.it, max=trace.shape[-1] - 1).to(torch.int64)[:, None]
+        held = trace.gather(1, idx)
+        trace.scatter_(1, idx, torch.where(where[:, None], value[:, None].to(trace.dtype), held))
 
 
 class _Solver:
     """The solve function for one (plant, cost, config) triple.
 
-    On the CPU a call runs `_init_carry`, then `_iteration` in a host loop
-    that reads the exit flag once per iteration but the last.  On the card a
-    call replays a CUDA graph (`graphs.py`) that holds the same body in a
-    WHILE node; it is captured once per static signature (shapes, dtype,
-    the two flags, which of P0/p0/d0 are given, the goal's structure and
-    the cost weights, which are baked into the cost's operations).  The
-    iteration cap is a device scalar of the graph, so a new `iter_limit`
-    needs no new capture."""
+    A call solves one problem, `solve_batch` B of them; both run the same
+    batched body.  On the CPU a call runs `_init_carry`, then `_iteration`
+    in a host loop that reads the exit flag once per iteration but the
+    last.  On the card a call replays a CUDA graph (`graphs.py`) that holds
+    the same body in a WHILE node; it is captured once per static signature
+    (shapes, dtype, the two flags, which of P0/p0/d0 are given and the
+    goal's structure).  The cost weights are a device tensor of the graph,
+    loaded like the goal, and so is the iteration cap: a new weight value,
+    goal or `iter_limit` needs no new capture."""
 
     def __init__(self, plant: Plant, cost: CostModel, cfg: SolverConfig):
         unported = [f for f in ("use_finite_diff", "bf16_rollout", "bf16_cost",
@@ -164,30 +197,73 @@ class _Solver:
         iter_limit: Optional[int] = None,
         device=None,
     ) -> SolveOutput:
+        """One solve: x0 (N, n), u0 (N, m), P0/p0/d0 (N, ...)."""
+        return self._entry(False, x0, u0, goal, weights, P0, p0, d0, initial_rollout,
+                           ignore_first_defect, iter_limit, device)
+
+    def solve_batch(
+        self,
+        x0s,
+        u0s,
+        goals,
+        weights: Optional[CostWeights] = None,
+        P0=None,
+        p0=None,
+        d0=None,
+        initial_rollout: bool = False,
+        ignore_first_defect: bool = False,
+        iter_limit: Optional[int] = None,
+        device=None,
+    ) -> SolveOutput:
+        """B independent solves at once: x0s (B, N, n), u0s (B, N, m),
+        P0/p0/d0 (B, ...), goals a pytree whose tensors have a leading B;
+        the weights and the iteration cap are shared.  Every leaf of the
+        output has a leading B."""
+        return self._entry(True, x0s, u0s, goals, weights, P0, p0, d0,
+                           initial_rollout, ignore_first_defect, iter_limit, device)
+
+    def _entry(self, batched: bool, x0, u0, goal, weights, P0, p0, d0, initial_rollout,
+               ignore_first_defect, iter_limit, device) -> SolveOutput:
         cfg = self.cfg
         x0 = as_tensor(x0, device=device)
         dtype, device = x0.dtype, x0.device
         refuse_tf32(device)
         u0 = torch.as_tensor(u0, dtype=dtype, device=device)
-        w = weights if weights is not None else CostWeights()
+        if x0.dim() != 2 + batched:
+            raise ValueError(f"x0 must have {2 + batched} dims, got shape {tuple(x0.shape)}")
+        run = self.run_batch if batched else self.run
+        w = weights_tensor(weights, device, dtype)
         it_cap = cfg.max_iter if iter_limit is None else min(max(int(iter_limit), 1), cfg.max_iter)
         flags = (bool(initial_rollout), bool(ignore_first_defect))
-        args = (x0, u0, goal, P0, p0, d0, it_cap)
+        args = (x0, u0, goal, P0, p0, d0, it_cap, w)
         if not graphs.replayed(device):
-            out, self.host_syncs = self.run(*args, w, *flags)
+            out, self.host_syncs = run(*args, *flags)
             return out
-        fn = lambda *a: self.run(*a, w, *flags)[0]
-        graph = self.graphs.get(graphs.signature(args, w, flags), fn, args)
+        fn = lambda *a: run(*a, *flags)[0]
+        graph = self.graphs.get(graphs.signature(args, flags), fn, args)
         out = graph(*args)
         self.host_syncs = 0
         return out
 
-    def run(self, x0, u0, goal, P0, p0, d0, it_cap, w: CostWeights,
-            initial_rollout: bool, ignore_first_defect: bool):
+    def run(self, x0, u0, goal, P0, p0, d0, it_cap, w, initial_rollout: bool,
+            ignore_first_defect: bool):
         """One solve on the device of x0 (the body the card's graphs
-        capture): returns (SolveOutput, host reads of device values).
-        it_cap: the iteration cap, an int or a 0-d integer tensor."""
-        c = self._init_carry(x0, u0, goal, w, P0, p0, d0, initial_rollout, ignore_first_defect)
+        capture): the batched body at B = 1 with the goal shared.  Returns
+        (SolveOutput, host reads of device values).  it_cap: the iteration
+        cap, an int or a 0-d integer tensor; w: the weights (a (21,) tensor
+        or a `CostWeights`)."""
+        one = lambda t: None if t is None else t[None]
+        out, syncs = self.run_batch(one(x0), one(u0), goal, one(P0), one(p0), one(d0), it_cap,
+                                    w, initial_rollout, ignore_first_defect, shared_goal=True)
+        return SolveOutput(*(t[0] for t in out)), syncs
+
+    def run_batch(self, x0, u0, goal, P0, p0, d0, it_cap, w, initial_rollout: bool,
+                  ignore_first_defect: bool, shared_goal: bool = False):
+        """B solves on the device of x0 (B, N, n): returns (SolveOutput with
+        a leading B on every leaf, host reads).  shared_goal: one goal for
+        every scenario, else its tensors have a leading B."""
+        c = self._init_carry(x0, u0, goal, w, P0, p0, d0, initial_rollout, ignore_first_defect,
+                             shared_goal)
         syncs = self._drive(c, goal, w, it_cap)
         return SolveOutput(
             x=c.x, u=c.u, K=c.K, d=c.d, P=c.P, p=c.p, J=c.prevJ, iters=c.it - 1,
@@ -199,12 +275,14 @@ class _Solver:
     def _drive(self, c: _Carry, goal, w, it_cap) -> int:
         """Run the iterations on c; returns the host reads made."""
         if isinstance(it_cap, torch.Tensor) or graphs.capturing(c.x) or graphs.in_masked():
-            # the graph's loop (a WHILE node) and the masked one (graphs.py)
+            # the graph's loop (a WHILE node) and the masked one (graphs.py):
+            # while any scenario is active
             return graphs.while_loop(
-                lambda: torch.logical_and(~c.done, c.it <= it_cap),
+                lambda: torch.logical_and(~c.done, c.it <= it_cap).any(),
                 lambda go: self._iteration(c, goal, w, it_cap), self.cfg.max_iter)
         # the CPU's: one read of the exit flag per iteration, none after the
-        # iteration the budget ends
+        # iteration the budget ends (a scenario that is not done has run
+        # every iteration so far, so the cap binds them all at once)
         cap = torch.full((), it_cap, dtype=torch.int32, device=c.x.device)
         syncs = 0
         for it in range(1, it_cap + 1):
@@ -212,35 +290,45 @@ class _Solver:
             if it == it_cap:
                 break
             syncs += 1
-            if bool(c.done):
+            if bool(c.done.all()):
                 break
         return syncs
 
-    def _init_carry(self, x0, u0, goal, w, P0, p0, d0, initial_rollout, ignore_first_defect):
+    def _init_carry(self, x0, u0, goal, w, P0, p0, d0, initial_rollout, ignore_first_defect,
+                    shared_goal: bool = False):
         """The state before the first iteration (fresh tensors: the caller's
-        are never written)."""
+        are never written).  x0 (B, N, n), or (N, n) for one problem (B = 1,
+        the goal shared)."""
+        if x0.dim() == 2:
+            one = lambda t: None if t is None else t[None]
+            x0, u0, P0, p0, d0 = (one(t) for t in (x0, u0, P0, p0, d0))
+            shared_goal = True
         cfg = self.cfg
         N = cfg.num_time_steps
+        B = x0.shape[0]
         n, m = self.plant.n_state, self.plant.n_ctrl
         dtype, device = x0.dtype, x0.device
-        zeros = lambda *shape: torch.zeros(shape, dtype=dtype, device=device)
-        full = lambda value, dt=dtype: torch.full((), value, dtype=dt, device=device)
+        zeros = lambda *shape: torch.zeros((B,) + shape, dtype=dtype, device=device)
+        full = lambda value, dt=dtype: torch.full((B,), value, dtype=dt, device=device)
+        dims = None if shared_goal else goal_dims(goal)
         if initial_rollout:
             x, d = open_loop_rollout(cfg, self.chain.open_loop, x0, u0)
         else:
             x = x0.clone()
             d = d0.clone() if d0 is not None else zeros(N, n)
         u = u0.clone()
-        J0 = self.cost.stage(x, u, torch.arange(N, device=device), goal, w).sum()
-        J_trace = torch.full((cfg.max_iter + 1,), torch.nan, dtype=dtype, device=device)
-        J_trace[0] = J0
-        alpha_trace = torch.full((cfg.max_iter + 1,), -2, dtype=torch.int32, device=device)
+        stage = per_scenario(self.cost.stage, dims)
+        J0 = stage(x, u, torch.arange(N, device=device), goal, weights_of(w, x)).sum(-1)
+        J_trace = torch.full((B, cfg.max_iter + 1), torch.nan, dtype=dtype, device=device)
+        J_trace[:, 0] = J0
+        alpha_trace = torch.full((B, cfg.max_iter + 1), -2, dtype=torch.int32, device=device)
         # fill_, not item assignment: assigning a Python int copies it from the
         # host and synchronises the stream
-        alpha_trace[:1].fill_(0 if initial_rollout else -1)
-        defect_trace = torch.full((cfg.max_iter + 1,), torch.nan, dtype=dtype, device=device)
-        defect_trace[0] = d.abs().sum(-1).amax()
+        alpha_trace[:, :1].fill_(0 if initial_rollout else -1)
+        defect_trace = torch.full((B, cfg.max_iter + 1), torch.nan, dtype=dtype, device=device)
+        defect_trace[:, 0] = d.abs().sum(-1).amax(-1)
         return _Carry(
+            goal_dims=dims,
             x=x, u=u, d=d, xp2=x.clone(),
             P=P0.clone() if P0 is not None else zeros(N, n, n),
             p=p0.clone() if p0 is not None else zeros(N, n),
@@ -257,18 +345,22 @@ class _Solver:
         )
 
     def _iteration(self, c: _Carry, goal, w, cap) -> int:
-        """One iteration, every field of c committed under
-        active = ~done & (it <= cap): run past the end of a solve it changes
-        nothing.  Returns the host reads made (the rho retry's, on the CPU)."""
+        """One iteration of every scenario, each field of scenario b
+        committed under active[b] = ~done[b] & (it[b] <= cap): run past the
+        end of a scenario's solve it changes nothing there.  Returns the
+        host reads made (the rho retry's, on the CPU)."""
         cfg, cost = self.cfg, self.cost
         active = torch.logical_and(~c.done, c.it <= cap)
+        w = weights_of(w, c.x)
+        cost_stage = per_scenario(cost.stage, c.goal_dims)
 
         def stage(xk, uk, k):
-            return cost.stage(xk, uk, k, goal, w)
+            return cost_stage(xk, uk, k, goal, w)
 
         # derivatives at the accepted trajectory (nextIterationSetupGPU,
         # which runs on accept or reject)
-        AB, H, g = _derivatives(cfg, self.step_jac, cost.quad, c.x, c.u, goal, w)
+        AB, H, g = _derivatives(cfg, self.step_jac, per_scenario(cost.quad, c.goal_dims),
+                                c.x, c.u, goal, w)
 
         # BACKWARD PASS (with rho retry) ---------------------------------------
         bp = backward_pass(cfg, AB, H, g, c.P, c.p, c.d, c.x, c.xp2, c.rho, c.drho)
@@ -284,7 +376,9 @@ class _Solver:
         # nisInitHelpers.cuh:487-518) ---------------------------------------------
         accept = torch.logical_and(ls.accept, ~bp.fail)
         take = torch.logical_and(active, accept)
-        pick = lambda a: a.index_select(0, ls.alpha_idx.reshape(1))[0]
+        sel = ls.alpha_idx
+        # each scenario's candidate at its selected alpha (axis 1)
+        pick = lambda a: torch.take_along_dim(a, per_scenario_mask(sel[:, None], a), dim=1)[:, 0]
         f = cfg.rho_factor
         drho_acc = torch.clamp(bp.drho / f, max=1.0 / f)
         rho_acc = torch.clamp(bp.rho * drho_acc, min=cfg.rho_min)
@@ -303,9 +397,10 @@ class _Solver:
         done = done | bp.fail
 
         c.record("J_trace", active, torch.where(accept, ls.J, c.prevJ))
-        c.record("alpha_trace", active, torch.where(accept, ls.alpha_idx, -1))
+        c.record("alpha_trace", active, torch.where(accept, sel, -1))
         c.record("defect_trace", active,
-                 torch.where(accept, pick(ro.d), c.d).abs().sum(-1).amax())
+                 torch.where(per_scenario_mask(accept, c.d), pick(ro.d), c.d)
+                 .abs().sum(-1).amax(-1))
         c.commit("xp2", active, c.x)
         c.commit("x", take, pick(ro.x))
         c.commit("u", take, pick(ro.u))
@@ -329,7 +424,9 @@ def make_ilqr_solver(plant: Plant, cost: CostModel, cfg: SolverConfig) -> _Solve
 
     Returns solve(x0, u0, goal, weights=None, *, P0=None, p0=None, d0=None,
                   initial_rollout=False, ignore_first_defect=False,
-                  iter_limit=None, device=None) -> SolveOutput."""
+                  iter_limit=None, device=None) -> SolveOutput;
+    `solve.solve_batch` takes the same arguments with a leading scenario
+    axis (`parallel/sharding.py::make_batched_solver` wraps it)."""
     return _Solver(plant, cost, cfg)
 
 

@@ -66,7 +66,7 @@ def main(extra_flags=()):
     for rep in range(reps + 1):
         status = fn(sP.data_ptr(), sp.data_ptr(), rho.data_ptr(), 0, AB.data_ptr(), H.data_ptr(),
                     g.data_ptr(), d.data_ptr(), k.data_ptr(), *(o.data_ptr() for o in outs),
-                    M, Nb, n, m, N - 1, Nb, 1, 1, clocks.data_ptr(), stream)
+                    1, M, Nb, n, m, N - 1, Nb, 1, 1, clocks.data_ptr(), stream)
         if status:
             sys.exit(f"launch failed: CUDA error {status}")
         torch.cuda.synchronize()

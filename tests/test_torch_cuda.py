@@ -76,10 +76,11 @@ def test_rollout_kernel(dev, integrator):
         torch.testing.assert_close(g.cpu(), r, rtol=1e-4, atol=1e-5)
 
 
-@pytest.mark.parametrize("batch", [1, 63, 1000])
+@pytest.mark.parametrize("batch", [1, 63, 1000, 256 * 63, 4096 * 63])
 def test_rbd_jac_group_kernel_batches(dev, batch):
     """The thread-group Jacobian kernel at one sample (a block of one group),
-    the main path's 63 and 1,000 (657 blocks, the last one ragged)."""
+    the main path's 63, 1,000 (657 blocks, the last one ragged) and the
+    batched solve's flattened B x 63 at B = 256 and 4096."""
     rng = np.random.default_rng(batch)
     x, u = _f32(rng, (batch, 14), 0.5, dev), _f32(rng, (batch, 7), 2.0, dev)
     jac, qdd = cuda_rbd.kuka_jac_qdd(x, u, 1, 0.0)
@@ -170,11 +171,13 @@ def test_rollout_without_feedback_is_the_chain_kernel(dev, integrator):
 
 
 @pytest.mark.parametrize("integrator,lead,steps", [(1, (), 63), (1, (4,), 16), (2, (2, 3), 5),
-                                                   (3, (), 15)])
+                                                   (3, (), 15), (1, (256, 4), 16), (1, (256,), 63)])
 def test_sim_chain_open_loop_kernel(dev, integrator, lead, steps):
     """Mode (a) against the step repeated in a Python loop (the plain
-    version), on the same CUDA tensors: rounding compounds over the steps
-    (measured 4.6e-6 at 63 Euler steps on an H100)."""
+    version), on CPU tensors: rounding compounds over the steps (measured
+    4.6e-6 at 63 Euler steps on an H100).  Also at the batched solve's
+    initial rollout (B x 4 blocks of 16 steps) and the fleet step's warm
+    start (B chains of 63 steps), B = 256."""
     rng = np.random.default_rng(steps)
     dt = 0.5 / 63
     x0, u = _f32(rng, lead + (14,), 0.3, dev), _f32(rng, lead + (steps, 7), 1.0, dev)
@@ -332,8 +335,8 @@ def _assert_same_run(graphed, eager):
 def test_replayed_solve_matches_cpu_and_takes_new_inputs(dev):
     """A cold solve replayed on the card takes the CPU's decisions; warm
     replays with a new goal, iter_limit or cost weights match the same solve
-    run eagerly on the card (the body's host loop), a new goal or iter_limit
-    with no new capture, new weights with one; the launch counters count
+    run eagerly on the card (the body's host loop), each with no new capture
+    (the weights are a tensor the graph loads); the launch counters count
     replays."""
     from parallel_ddp_tpu_torch.config import CostWeights
     from parallel_ddp_tpu_torch.presets import ee_goal
@@ -357,7 +360,7 @@ def test_replayed_solve_matches_cpu_and_takes_new_inputs(dev):
         assert reads > 0
         _assert_same_run(gpu, eager)
         assert int(gpu.iters) == (limit or cfg.max_iter)
-    assert len(gpu_solver.graphs) == 3                  # cold, warm, warm with new weights
+    assert len(gpu_solver.graphs) == 2                  # cold, warm (new weights: data)
     counters = (cuda_rbd.kuka_jac_qdd_cuda.counter, cuda_rollout.kuka_rollout_cuda.counter,
                 cuda_riccati.riccati_cuda.counter)
     for c in counters:
@@ -461,3 +464,195 @@ def test_capture_failure_raises(dev):
 
     with pytest.raises(RuntimeError):
         graphs.Captured(body, (torch.ones(3, device=dev),), "host read")
+
+
+# --- scenario batching: the kernels' scenario axis, the batched solve
+
+def _rollout_batch(rng, B, A, M, nf, dev):
+    N = M * nf
+    return (_f32(rng, (B, A, N, 14), 0.3, dev), _f32(rng, (B, N, 7), 1.0, dev),
+            _f32(rng, (B, N, 7, 14), 0.05, dev), _f32(rng, (B, N, 7), 0.5, dev),
+            _f32(rng, (B, N, 14), 0.3, dev),
+            torch.pow(0.5, torch.arange(A, dtype=torch.float32, device=dev)))
+
+
+def _riccati_batch(rng, B, Mb, Nb, dev, n=14, m=7):
+    nm = n + m
+    C = rng.normal(0, 0.3, (B, Mb, Nb, nm, nm))
+    H = torch.as_tensor((np.einsum("...ij,...lj->...il", C, C) + np.eye(nm)).astype(np.float32),
+                        device=dev)
+    Cp = rng.normal(0, 0.3, (B, Mb, n, n))
+    sP = torch.as_tensor((np.einsum("...ij,...lj->...il", Cp, Cp) + np.eye(n)).astype(np.float32),
+                         device=dev)
+    rho = torch.as_tensor(rng.uniform(0.2, 2.0, B).astype(np.float32), device=dev)
+    return (rho, sP, _f32(rng, (B, Mb, n), 0.5, dev), _f32(rng, (B, Mb, Nb, n, nm), 0.3, dev), H,
+            _f32(rng, (B, Mb, Nb, nm), 0.5, dev), _f32(rng, (B, Mb, Nb, n), 0.1, dev),
+            torch.arange(Mb * Nb, device=dev).reshape(Mb, Nb))
+
+
+@pytest.mark.parametrize("B", [1, 5, 70])
+def test_batched_kernels_match_plain_and_per_scenario_launches(dev, B):
+    """The rollout and Riccati kernels with a scenario axis: within the
+    plain versions' tolerances of test_rollout_kernel / test_riccati_kernel,
+    and each scenario bit for bit its own launch (a scenario's thread blocks
+    run the same program whatever B is)."""
+    from parallel_ddp_tpu_torch.config import SolverConfig
+
+    rng = np.random.default_rng(B)
+    A, M, nf = 16, 4, 16
+    fused = cuda_rollout.make_kuka_fused_rollout(1, 0.0, 1, 0.5 / 63, M * nf, M, A)
+    args = _rollout_batch(rng, B, A, M, nf, dev)
+    before = cuda_rollout.kuka_rollout_cuda.counter.launches
+    got = fused(*args)
+    assert cuda_rollout.kuka_rollout_cuda.counter.launches == before + 1
+    ref = fused(*[a.cpu() for a in args])
+    for g, r in zip(got, ref):
+        assert g.shape == (B, A, M, nf, g.shape[-1])
+        torch.testing.assert_close(g.cpu(), r, rtol=1e-4,
+                                   atol=1e-5 * max(float(r.abs().max()), 1.0))
+    for b in {0, B // 2, B - 1}:
+        for g, r in zip(got, fused(*(a[b] for a in args[:5]), args[5])):
+            assert torch.equal(g[b], r)
+
+    Mb, Nb = 4, 16
+    cfg = SolverConfig(num_time_steps=Mb * Nb, m_blocks_b=Mb, m_blocks_f=4, num_alpha=A)
+    bp = cuda_riccati.make_riccati_block_call(cfg, 14, 7)
+    rargs = _riccati_batch(rng, B, Mb, Nb, dev)
+    got = bp(*rargs)
+    assert got[6].shape == (B, 2) and got[7].shape == (B,) and not bool(got[7].any())
+    ref = bp(*[a.cpu() for a in rargs])
+    for g, r in zip(got[:7], ref[:7]):
+        torch.testing.assert_close(g.cpu(), r, rtol=1e-4,
+                                   atol=1e-5 * max(float(r.abs().max()), 1.0))
+    for b in {0, B // 2, B - 1}:
+        one = bp(rargs[0][b], *(a[b] for a in rargs[1:7]), rargs[7])
+        for g, r in zip(got, one):
+            assert torch.equal(g[b], r)
+    # one indefinite scenario fails alone
+    bad = list(rargs)
+    bad[4] = rargs[4].clone()
+    bad[4][B - 1, ..., 14:, 14:] -= 50.0 * torch.eye(7, device=dev)
+    assert bp(*bad)[7].tolist() == [False] * (B - 1) + [True]
+
+
+def _batch_goals(B, dev):
+    from parallel_ddp_tpu_torch.presets import ee_goal, figure8_goal
+
+    goals = [ee_goal(figure8_goal(1.0 + 8.0 * b / B)[0], device=dev) for b in range(B)]
+    return {k: torch.stack([g[k] for g in goals]) for k in goals[0]}
+
+
+def test_batched_solve_graph_matches_single_graphs(dev):
+    """A batched cold solve (one graph replay, tol_cost 0.01 so scenarios
+    stop at different iterations) against each scenario solved alone
+    through the single solver's graph, and a B = 2 batch against the same
+    batch on CPU tensors: the same iterations and alphas, J within 1e-3.
+    Four iterations: the batch's glue rounds otherwise than a single
+    solve's, and at this small size the rounding grows fast (ROADMAP.md,
+    known deviations: 0.28 % of J by the 7th iteration of an 8-iteration
+    solve on the card, the same alphas)."""
+    from parallel_ddp_tpu_torch.parallel.sharding import make_batched_solver
+    from parallel_ddp_tpu_torch.solver import make_ilqr_solver
+
+    prob, cfg = _small_problem(4)
+    cfg = dataclasses.replace(cfg, tol_cost=0.01)
+    B = 6
+    goals = _batch_goals(B, dev)
+    goals["ee_goal"][-1, :3] = torch.tensor([0.005, 0.0, 1.3195], device=dev)   # near home
+    x0, u0 = torch.zeros(B, 16, 14, device=dev), torch.zeros(B, 16, 7, device=dev)
+    solve = make_batched_solver(prob.plant, prob.cost, cfg)
+    out = solve(x0, u0, goals)
+    assert solve.solver.host_syncs == 0 and len(set(out.iters.tolist())) > 1
+    single = make_ilqr_solver(prob.plant, prob.cost, cfg)
+    for b in range(B):
+        one = single(x0[b], u0[b], {k: v[b] for k, v in goals.items()}, initial_rollout=True)
+        it = int(one.iters)
+        assert int(out.iters[b]) == it
+        assert torch.equal(out.alpha_trace[b, :it + 1], one.alpha_trace[:it + 1])
+        torch.testing.assert_close(out.J_trace[b, :it + 1], one.J_trace[:it + 1], rtol=1e-3, atol=0)
+    cpu = make_batched_solver(prob.plant, prob.cost, cfg)(
+        x0[:2].cpu(), u0[:2].cpu(), {k: v[:2].cpu() for k, v in goals.items()})
+    for b in range(2):
+        _assert_same_decisions(
+            type(out)(*(a[b] for a in out)), type(cpu)(*(a[b] for a in cpu)))
+
+
+@pytest.mark.parametrize("B", [2, 64])
+def test_batched_launches_do_not_depend_on_B(dev, B):
+    """A batched 3-iteration solve (tol_cost 0) launches the Jacobian and the
+    rollout kernel 3 times each and the Riccati kernel 3 times plus retries,
+    whatever B is: the kernels take the scenario axis, no Python loop does."""
+    from parallel_ddp_tpu_torch.parallel.sharding import make_batched_solver
+
+    prob, cfg = _small_problem(3)
+    cfg = dataclasses.replace(cfg, tol_cost=0.0)
+    solve = make_batched_solver(prob.plant, prob.cost, cfg)
+    x0, u0 = torch.zeros(B, 16, 14, device=dev), torch.zeros(B, 16, 7, device=dev)
+    goals = _batch_goals(B, dev)
+    solve(x0, u0, goals)                          # the capture
+    counters = (cuda_rbd.kuka_jac_qdd_cuda.counter, cuda_rollout.kuka_rollout_cuda.counter,
+                cuda_riccati.riccati_cuda.counter)
+    for c in counters:
+        c.reset()
+    out = solve(x0, u0, goals)
+    assert out.iters.tolist() == [3] * B
+    jac, roll, ric = (c.launches for c in counters)
+    assert jac == roll == 3 and ric == 3
+
+
+def test_weight_change_makes_no_capture_and_no_sync(dev):
+    """A new weight value takes effect in the replayed solve with no new
+    capture; a value seen before makes no stream sync."""
+    from parallel_ddp_tpu_torch.config import CostWeights
+    from parallel_ddp_tpu_torch.presets import ee_goal
+    from parallel_ddp_tpu_torch.solver import make_ilqr_solver
+
+    prob, cfg = _small_problem(3)
+    solver = make_ilqr_solver(prob.plant, prob.cost, cfg)
+    x0, u0 = torch.zeros(16, 14, device=dev), torch.zeros(16, 7, device=dev)
+    goal = ee_goal((0.3, -0.3, 0.9), device=dev)
+    first = solver(x0, u0, goal, initial_rollout=True)
+    w2 = CostWeights(q_ee1=0.3, r_ee=2e-4)
+    second = solver(x0, u0, goal, w2, initial_rollout=True)
+    assert len(solver.graphs) == 1 and not torch.equal(first.J_trace, second.J_trace)
+    cpu = make_ilqr_solver(prob.plant, prob.cost, cfg)(
+        x0.cpu(), u0.cpu(), {k: v.cpu() for k, v in goal.items()}, w2, initial_rollout=True)
+    _assert_same_decisions(second, cpu)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        solver(x0, u0, goal, w2, initial_rollout=True)
+        solver(x0, u0, goal, initial_rollout=True)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+
+
+def test_ee_velocity_cost_is_captured(dev):
+    """The EE-velocity cost (nested torch.func.jacfwd under vmap in its
+    Hessian) in a replayed solve at the WAFR size: the same body run
+    eagerly on the card (rtol 1e-5), and the CPU's decisions with J within
+    1e-3.  (At N = 16 the card's and the CPU's J part by rounding within 4
+    iterations, 0.37 %, with the same alphas: ROADMAP.md, known
+    deviations.)"""
+    from parallel_ddp_tpu_torch.config import CostWeights
+    from parallel_ddp_tpu_torch.presets import ee_goal, kuka_ee
+    from parallel_ddp_tpu_torch.solver import make_ilqr_solver
+
+    prob = kuka_ee(use_ee_vel=True)
+    cfg = dataclasses.replace(prob.cfg, max_iter=3, pallas_riccati=True)
+    w = CostWeights(q_eev1=0.05, qf_eev1=5.0)
+    goal = ee_goal((0.3, -0.3, 0.9), device="cpu")
+    goal["ee_vel_goal"] = torch.zeros(6)
+    goal_dev = {k: v.to(dev) for k, v in goal.items()}
+    x0, u0 = torch.zeros(64, 14), torch.zeros(64, 7)
+    gpu = make_ilqr_solver(prob.plant, prob.cost, cfg)
+    out = gpu(x0.to(dev), u0.to(dev), goal_dev, w, initial_rollout=True)
+    assert gpu.host_syncs == 0 and len(gpu.graphs) == 1
+    eager, reads = gpu.run(x0.to(dev), u0.to(dev), goal_dev, None, None, None, cfg.max_iter, w,
+                           True, False)
+    assert reads > 0
+    _assert_same_run(out, eager)
+    cpu = make_ilqr_solver(prob.plant, prob.cost, cfg)(x0, u0, goal, w, initial_rollout=True)
+    assert (cpu.alpha_trace[1:] >= 0).any()
+    _assert_same_decisions(out, cpu)

@@ -139,23 +139,25 @@ def test_masked_retry_matches_reference(pallas):
 
 def test_graph_route_of_the_solver():
     """The solver's graph route (one "capture", replays): the host route's
-    solve bit for bit; a new iter_limit or goal takes effect without a new
-    capture, new weights make one; a caller's outputs are never
-    overwritten by the next call."""
+    solve bit for bit; a new iter_limit, goal or weight value takes effect
+    without a new capture (the weights are a tensor the graph loads); a
+    caller's outputs are never overwritten by the next call."""
     solver = _solver(3, 0.0)
     x0, u0 = torch.zeros(N, 14), torch.zeros(N, 7)
     goal, goal2 = ee_goal(GOAL, device="cpu"), ee_goal((0.35, -0.25, 0.85), device="cpu")
-    want = [solver(x0, u0, g, initial_rollout=True, iter_limit=il)
-            for g, il in ((goal, None), (goal2, 2))]
+    w3 = CostWeights(r_ee=1e-3)
+    want = [solver(x0, u0, g, wt, initial_rollout=True, iter_limit=il)
+            for g, wt, il in ((goal, None, None), (goal2, None, 2), (goal, w3, None))]
     assert solver.host_syncs > 0
     with graphs.emulate():
         first = solver(x0, u0, goal, initial_rollout=True)
         kept = [t.clone() for t in first if isinstance(t, torch.Tensor)]
         second = solver(x0, u0, goal2, initial_rollout=True, iter_limit=2)
         assert solver.host_syncs == 0 and len(solver.graphs) == 1
-        solver(x0, u0, goal, CostWeights(r_ee=1e-3), initial_rollout=True)
-        assert len(solver.graphs) == 2
-    for got, ref in zip((first, second), want):
+        third = solver(x0, u0, goal, w3, initial_rollout=True)
+        assert len(solver.graphs) == 1
+    assert not torch.equal(third.J_trace, first.J_trace)
+    for got, ref in zip((first, second, third), want):
         for name, a in got._asdict().items():
             if isinstance(a, torch.Tensor):
                 _same(a, getattr(ref, name), name)
