@@ -20,8 +20,15 @@ Phases (each prints one line; any failure exits non-zero):
                at T = 63 Euler, 4 x 16 Euler and
                T = 15 RK3; the Riccati sweep at the Kuka's sizes, on blocks of
                96 steps, longer than its ring of staged steps, and at n = 4,
-               m = 2, the run-time-size body); the wrappers' host cost per enqueue apart
-               from the kernels' own time (CUDA-graph replay).
+               m = 2, the run-time-size body, and at every shape a path of
+               the plants phase gives it, from the configs that phase solves
+               with: (n, m) = (2, 1), (4, 1), (12, 4) over 4 lanes of 32
+               steps, (14, 7) and (12, 4) over 4 lanes of 16, (2, 1) over 2
+               lanes of 16, each timed beside its bound); the Kuka kernels
+               also at gravity 9.81 (kuka_joint's) and
+               the forward dynamics at kuka_joint's FD batch of 2,646 samples;
+               the wrappers' host cost per enqueue apart from the kernels' own
+               time (CUDA-graph replay).
   4. solve   — the WAFR Kuka iiwa-14 end-effector solve (N=64, 4+4 blocks,
                16 alphas, Euler, gravity-compensated) with the fused Riccati
                sweep, cold then three warm re-solves along the figure-8 goal,
@@ -34,6 +41,25 @@ Phases (each prints one line; any failure exits non-zero):
   5. timing  — median of 20 replayed warm 6-iteration re-solves (the first
                warm re-solve, repeated; CUDA events); the solver's host reads
                and torch's sync-debug count of one solve must both be 0.
+  5b. plants — the WAFR example's other four problems at their presets'
+               full sizes with the fused Riccati sweep (pendulum, cart-pole,
+               quadrotor: N = 128, 4 blocks, RK3, no kernel hooks, their
+               step and jacfwd captured op by op; kuka_joint: N = 64, Euler,
+               gravity on, through the Jacobian, rollout and chain kernels),
+               from the JAX package's own start states and goals: each cold
+               solve one graph replay (launch counts zeroed just before it;
+               0 host reads) against the same solve on CPU tensors (alphas
+               equal up to the CPU trace's first near tie, J within
+               SOLVE_RTOL) and the JAX tests' convergence bars; a warm
+               6-iteration re-solve timed (median of 20, CUDA events) with
+               its iteration body's graph nodes; kuka_joint with finite
+               differences (the FD AB through one qdd launch of 2,646
+               samples against the CPU's FD AB and the Jacobian kernel's AB,
+               at tests/test_torch_plants.py's bounds; the FD solve card
+               against CPU within FD_ENVELOPE_FACTOR x the gap that moving
+               the start by one or two ulps makes on the CPU); the
+               pendulum's device closed loop of
+               tests/test_mpc.py (30 control steps, 3 on CPU tensors).
   6. fig8    — the figure-8 closed loop of benchmarks/fig8.py through the
                port's MPC controller and device loop, one graph replay per
                control step: cold start (one replay of the 50-iteration
@@ -110,6 +136,10 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 N_ITERS = 6          # iterations per solve (fixed budget: tol_cost = 0)
 QDD_BATCHES = (1, 8192)  # forward dynamics: the closed loop's and timedyn's batch
+GRAVITY = 9.81       # kuka_joint's arm has gravity on (not gravity-compensated)
+# the finite-difference step Jacobian of kuka_joint: 2 (14 + 7) perturbed
+# copies of the 63 samples, one forward-dynamics launch (Euler)
+QDD_FD_BATCH = 2 * 21 * 63
 N_WARM = 3           # warm re-solves along the figure-8 after the cold solve
 N_TIMED = 20         # warm solves in the timing median
 MPC_DT = 0.01        # figure-8 goal step between re-solves (100 Hz replanning)
@@ -185,6 +215,38 @@ J_TRACE_FLOOR = 1e-6
 # (measured: 1.8e-3 and 1.7e-3 after 3 iterations on an H100)
 FIG8_OWN_GAP = 2.0
 GAP_AT = (0, 1, 2, 3, 5, 10, 20, 30, 40)   # the iterations a gap is printed at
+# plants phase (the WAFR example's other four problems at full size).  The
+# card's solve (kernels, cuBLAS) and the CPU's (plain versions) round
+# differently, by about SOLVE_RTOL of J; a decision can flip only where the
+# solve meets a near tie at that level: a rejected step, or an accepted one
+# that gains less than PLANT_TIE of J.  Up to the CPU trace's first near tie
+# the alphas must be equal and J within SOLVE_RTOL; after a parting the two
+# solves must end within PLANT_FINAL_RTOL of each other.  The FD solve's
+# Jacobians carry ~ulp / eps ~ 1e-3 of noise or more: its near tie is at
+# 10x that.
+PLANT_TIE = SOLVE_RTOL
+PLANT_FD_TIE = 1e-2
+PLANT_FINAL_RTOL = 1e-2
+# the Kuka's CPU solves run the plain versions at ~0.9 s an iteration on the
+# card's host: the CPU check of kuka_joint's cold solves is capped (a prefix
+# of the same solve; the card's runs the whole cap)
+PLANT_CPU_ITERS = {"kuka_joint": 8}
+# the FD AB against an AD-exact AB: rounding of the two steps over 2 eps,
+# this many ulps of max|x'| (tests/test_torch_plants.py's FD-vs-AD bound)
+FD_ROUNDING_ULPS = 8
+# the FD solves amplify that rounding (a one-ulp move of the start moves the
+# Kuka's FD solve by percents of J within two iterations): the CPU's FD
+# solve from the start moved by each of ULP_MOVES float32 ulps gives the
+# rounding envelope, and the card's FD solve must stay within
+# FD_ENVELOPE_FACTOR x it.  The JAX package's FD solve, a third rounding,
+# stays within 0.53 x the same envelope at N = 16 (tests/test_torch_plant_solves.py,
+# test_kuka_finite_difference_solve_parts_within_rounding)
+ULP_MOVES = (1, -1, 2, -2)
+FD_ENVELOPE_FACTOR = 2.0
+# the pendulum's closed loop (tests/test_mpc.py:116-135) and its CPU check
+PEND_LOOP_STEPS = 30
+PEND_CPU_STEPS = 3
+PEND_X_ATOL = 1e-4
 # the paths driven, each with the launch counters zeroed just before it and
 # read just after, and the kernels each must launch
 PATH_KERNELS = {
@@ -192,6 +254,13 @@ PATH_KERNELS = {
     "fig8": ("rbd_jac", "rollout", "riccati", "sim_chain"),
     "fig8_block_rerollout": ("rbd_jac", "rollout", "riccati", "qdd", "sim_chain"),
     "wafr_batched": ("rbd_jac", "rollout", "riccati", "sim_chain"),
+    "plants_pendulum": ("riccati",),
+    "plants_cartpole": ("riccati",),
+    "plants_quadrotor": ("riccati",),
+    "plants_quadrotor_n64": ("riccati",),
+    "plants_kuka_joint": ("rbd_jac", "rollout", "riccati", "sim_chain"),
+    "plants_kuka_joint_fd": ("rollout", "riccati", "qdd", "sim_chain"),
+    "plants_pendulum_loop": ("riccati",),
 }
 # the path whose count is a kernel's `launches` in the kernels line: the fig-8
 # closed loop, and for the kernel it does not run, the block re-rollout loop
@@ -243,6 +312,23 @@ def cuda_ms(fn, reps, warmup=2):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def event_times(fn, reps):
+    """ms of each of `reps` calls of fn, by CUDA events around each call
+    (the stream drained before it)."""
+    import torch
+
+    times = []
+    for _ in range(reps):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return times
 
 
 def host_and_kernel_us(fn, enqueues, graph_launches=20, replays=10):
@@ -454,6 +540,14 @@ def kernel_phase(torch, np, dev):
          cuda_rbd.kuka_jac_qdd_plain(xs, us, 1, 0.0)[0]], dim=1)
     ab_plain = cuda_rbd.make_ab_composer(None, plain_jac, 1, dt, nx, nu)
     ab_err, ab_ok = compare("rbd_jac", [ab_call(x, u)], [ab_plain(x, u)])
+    # gravity on (kuka_joint's full-gravity arm): the Jacobian and its Euler AB
+    g_err, g_ok = compare("rbd_jac", cuda_rbd.kuka_jac_qdd_cuda(x, u, 1, GRAVITY),
+                          cuda_rbd.kuka_jac_qdd_plain(x, u, 1, GRAVITY))
+    e, o = compare("rbd_jac", [cuda_rbd.make_kuka_ab(1, GRAVITY, 1, dt)(x, u)],
+                   [cuda_rbd.kuka_euler_ab_plain(x.cpu(), u.cpu(), dt, 1, GRAVITY).to(dev)])
+    print(f"kernels: rbd_jac at gravity {GRAVITY}: max_abs_err {g_err:.3e}, Euler AB "
+          f"{e:.3e} ({'ok' if g_ok and o else 'OUT OF TOLERANCE'})", flush=True)
+    err, ok = max(err, g_err, e), ok and g_ok and o
     host_us, kernel_us = host_and_kernel_us(lambda: cuda_rbd.kuka_jac_qdd_cuda(x, u, 1, 0.0), 1000)
     ab_host_us, ab_kernel_us = host_and_kernel_us(lambda: ab_call(x, u), 1000)
     ab_ms = cuda_ms(lambda: ab_call(x, u), 50)
@@ -479,13 +573,13 @@ def kernel_phase(torch, np, dev):
     xp = f32(rng.normal(0, 0.3, (N, nx)))
     alphas = f32(SolverConfig(num_alpha=A, alpha_base=0.5).alphas())
     rollout_err, rollout_ok = 0.0, True
-    for integ in (1, 3):
-        fused = cuda_rollout.make_kuka_fused_rollout(1, 0.0, integ, dt, N, M, A)
+    for integ, grav in ((1, 0.0), (3, 0.0), (1, GRAVITY)):
+        fused = cuda_rollout.make_kuka_fused_rollout(1, grav, integ, dt, N, M, A)
         got = fused(x_sw, uu, K, du, xp, alphas)
         cpu = [t.cpu() for t in (x_sw, uu, K, du, xp, alphas)]
         ref = fused(*cpu)                     # plain version on CPU tensors
         e, o = compare("rollout", got, [r.to(dev) for r in ref])
-        print(f"kernels: rollout integrator {integ}: max_abs_err {e:.3e} "
+        print(f"kernels: rollout integrator {integ}, gravity {grav}: max_abs_err {e:.3e} "
               f"({'ok' if o else 'OUT OF TOLERANCE'})", flush=True)
         rollout_err, rollout_ok = max(rollout_err, e), rollout_ok and o
     skip = torch.zeros((M, N // M), dtype=torch.uint8, device=dev)
@@ -511,10 +605,14 @@ def kernel_phase(torch, np, dev):
     # -- fused Riccati on synthetic SPD inputs: 4 lanes x 16 steps at the
     #    Kuka's sizes (the compile-time-size body), 2 lanes x 96 steps at the
     #    same sizes (more steps than the ring's 73 slots: the slots of finished
-    #    steps are refilled) and 4 lanes x 4 steps at n = 4, m = 2 (the
-    #    run-time-size body), each against run_block
-    def riccati_case(n_steps, n_x, n_u, M=M):
-        cfg = SolverConfig(num_time_steps=n_steps, m_blocks_b=M, m_blocks_f=4, num_alpha=A)
+    #    steps are refilled), 4 lanes x 4 steps at n = 4, m = 2 (the
+    #    run-time-size body), and every shape of a plants-phase path (each
+    #    config that phase solves with), each against run_block
+    synth = lambda n_steps, lanes=M: SolverConfig(num_time_steps=n_steps, m_blocks_b=lanes,
+                                                  m_blocks_f=4, num_alpha=A)
+
+    def riccati_case(cfg, n_x, n_u):
+        n_steps, M = cfg.num_time_steps, cfg.m_blocks_b
         nb, nm = n_steps // M, n_x + n_u
         C = rng.normal(0, 0.3, (n_steps, nm, nm))
         H = f32(np.einsum("kij,klj->kil", C, C) + np.eye(nm)).reshape(M, nb, nm, nm)
@@ -527,26 +625,51 @@ def kernel_phase(torch, np, dev):
         d = f32(rng.normal(0, 0.1, (M, nb, n_x)))
         k_blk = torch.arange(n_steps, device=dev).reshape(M, nb)
         rho = torch.full((), 1.0, device=dev)
-        return cfg, (rho, seeds_P, seeds_p, AB, H, g, d, k_blk)
+        return rho, seeds_P, seeds_p, AB, H, g, d, k_blk
 
-    ric_err, ric_ok = 0.0, True
-    for label, (n_steps, n_x, n_u), lanes in (
-            ("n=14 m=7, 4 lanes x 16 steps, all staged", (N, nx, nu), M),
-            ("n=14 m=7, 2 lanes x 96 steps, ring refilled", (192, nx, nu), 2),
-            ("n=4 m=2, run-time sizes", (16, 4, 2), M)):
-        cfg, args = riccati_case(n_steps, n_x, n_u, lanes)
-        kw = dict(nf=n_steps - 1, n_blocks_f=cfg.n_blocks_f, state_reg=cfg.state_reg,
-                  use_defect=True)
-        got = cuda_riccati.riccati_cuda(*args, **kw)
+    ric_err, ric_ok, ric_plants = 0.0, True, {}
+    cases = [("n=14 m=7, 4 lanes x 16 steps, all staged", synth(N), nx, nu, None),
+             ("n=14 m=7, 2 lanes x 96 steps, ring refilled", synth(192, 2), nx, nu, None),
+             ("n=4 m=2, run-time sizes", synth(16), 4, 2, None)]
+    paths = {}                # a plants-phase shape -> the paths that run it
+    for path, (prob, cfg) in plant_problems(np).items():
+        n_x, n_u = prob.plant.n_state, prob.plant.n_ctrl
+        key = (cfg.num_time_steps, cfg.m_blocks_b, cfg.m_blocks_f, cfg.state_reg, n_x, n_u)
+        paths.setdefault(key, (cfg, []))[1].append(path)
+    cases += [(f"n={n_x} m={n_u}, {cfg.m_blocks_b} lanes x {cfg.n_blocks_b} steps "
+               f"({' / '.join(names)})", cfg, n_x, n_u, names[0])
+              for (*_, n_x, n_u), (cfg, names) in paths.items()]
+    for label, cfg, n_x, n_u, plant in cases:
+        args = riccati_case(cfg, n_x, n_u)
+        lanes = cfg.m_blocks_b
         bp = cuda_riccati.make_riccati_block_call(cfg, n_x, n_u)
+        got = bp(*args)                       # the kernel, as the solver calls it
         ref = bp(*[a.cpu() for a in args])    # plain version (run_block) on CPU tensors
         if bool(got[7]) or bool(ref[7]):
             fail(f"riccati {label}: synthetic SPD inputs reported a Cholesky failure")
         e, o = compare("riccati", got[:7], [r.to(dev) for r in ref[:7]])
+        timing = ""
+        if plant is not None:
+            # a plant's shape: its time, apart from the wrapper's host cost,
+            # beside its bound (the plants phase counts its launches)
+            step = cuda_riccati.make_riccati_step(cfg, n_x, n_u)
+            plain = lambda: cuda_riccati.run_block(step, args[0].expand(lanes), *args[1:])
+            host_us, kernel_us = host_and_kernel_us(lambda: bp(*args), 200)
+            bound = roofline(args, got, count_ops(plain))
+            ric_plants.update({f"ms_{plant}": cuda_ms(lambda: bp(*args), 50),
+                               f"plain_ms_{plant}": cuda_ms(plain, 2),
+                               f"host_us_{plant}": host_us, f"kernel_us_{plant}": kernel_us,
+                               f"bound_ms_{plant}": bound["bound_ms"],
+                               f"bound_by_{plant}": bound["bound_by"], f"max_abs_err_{plant}": e})
+            timing = (f"; {ric_plants[f'ms_{plant}']:.4f} ms vs plain "
+                      f"{ric_plants[f'plain_ms_{plant}']:.3f} ms; host {host_us:.2f} us per "
+                      f"enqueue, kernel alone {kernel_us:.2f} us (CUDA-graph replay); bound "
+                      f"{bound['bound_ms']:.3e} ms by {bound['bound_by']}")
         print(f"kernels: riccati {label}: max_abs_err {e:.3e} "
-              f"({'ok' if o else 'OUT OF TOLERANCE'})", flush=True)
+              f"({'ok' if o else 'OUT OF TOLERANCE'}){timing}", flush=True)
         ric_err, ric_ok = max(ric_err, e), ric_ok and o
-    cfg, args = riccati_case(N, nx, nu)
+    cfg = synth(N)
+    args = riccati_case(cfg, nx, nu)
     bp = cuda_riccati.make_riccati_block_call(cfg, nx, nu)
     got = bp(*args)
     step = cuda_riccati.make_riccati_step(cfg, nx, nu)
@@ -558,9 +681,9 @@ def kernel_phase(torch, np, dev):
     # a per-step part (4 block barriers and the one-warp Cholesky per step)
     per_nb = {}
     for nb in (4, 8, 16):
-        _, a_nb = riccati_case(M * nb, nx, nu)
-        bp_nb = cuda_riccati.make_riccati_block_call(
-            SolverConfig(num_time_steps=M * nb, m_blocks_b=M, m_blocks_f=M, num_alpha=A), nx, nu)
+        cfg_nb = SolverConfig(num_time_steps=M * nb, m_blocks_b=M, m_blocks_f=M, num_alpha=A)
+        a_nb = riccati_case(cfg_nb, nx, nu)
+        bp_nb = cuda_riccati.make_riccati_block_call(cfg_nb, nx, nu)
         per_nb[nb] = host_and_kernel_us(lambda: bp_nb(*a_nb), 10)[1]
     per_step = (per_nb[16] - per_nb[4]) / 12
     print(f"kernels: riccati kernel alone at 4/8/16 steps per lane: "
@@ -571,22 +694,23 @@ def kernel_phase(torch, np, dev):
         name="riccati", route="cuda", source="parallel_ddp_tpu_torch/csrc/riccati.cu",
         replaces="parallel_ddp_tpu/ops/pallas_riccati.py:137", max_abs_err=ric_err, ok=ric_ok,
         ms=cuda_ms(lambda: bp(*args), 50), plain_ms=cuda_ms(plain, 3),
-        host_us=host_us, kernel_us=kernel_us, kernel_us_per_step=per_step,
+        host_us=host_us, kernel_us=kernel_us, kernel_us_per_step=per_step, **ric_plants,
         **roofline(args, got, count_ops(plain))))
 
     # -- forward dynamics: one sample (every plant / warm-start step of the
     #    closed loop) and the batched dynamics benchmark's 8192
     qdd = dict(name="qdd", route="cuda", source="parallel_ddp_tpu_torch/csrc/qdd.cu",
                replaces="parallel_ddp_tpu/ops/pallas_rbd.py:39", max_abs_err=0.0, ok=True)
-    for B in QDD_BATCHES:
+    for B, grav in [(b, 0.0) for b in QDD_BATCHES] + [(QDD_FD_BATCH, GRAVITY)]:
         x = f32(rng.normal(0, 0.5, (B, nx)))
         u = f32(rng.normal(0, 2.0, (B, nu)))
-        got = cuda_rbd.kuka_qdd_cuda(x, u, 1, 0.0)
-        err, ok = compare("qdd", [got], [cuda_rbd.kuka_qdd_plain(x, u, 1, 0.0)])
-        ms = cuda_ms(lambda: cuda_rbd.kuka_qdd_cuda(x, u, 1, 0.0), 200)
-        plain_ms = cuda_ms(lambda: cuda_rbd.kuka_qdd_plain(x, u, 1, 0.0), 10)
-        print(f"kernels: qdd B={B}: max_abs_err {err:.3e} ({'ok' if ok else 'OUT OF TOLERANCE'}); "
-              f"{ms:.4f} ms vs plain {plain_ms:.3f} ms", flush=True)
+        got = cuda_rbd.kuka_qdd_cuda(x, u, 1, grav)
+        err, ok = compare("qdd", [got], [cuda_rbd.kuka_qdd_plain(x, u, 1, grav)])
+        ms = cuda_ms(lambda: cuda_rbd.kuka_qdd_cuda(x, u, 1, grav), 200)
+        plain_ms = cuda_ms(lambda: cuda_rbd.kuka_qdd_plain(x, u, 1, grav), 10)
+        print(f"kernels: qdd B={B}, gravity {grav}: max_abs_err {err:.3e} "
+              f"({'ok' if ok else 'OUT OF TOLERANCE'}); {ms:.4f} ms vs plain {plain_ms:.3f} ms",
+              flush=True)
         qdd["max_abs_err"] = max(qdd["max_abs_err"], err)
         qdd["ok"] = qdd["ok"] and ok
         if B == QDD_BATCHES[0]:
@@ -600,6 +724,9 @@ def kernel_phase(torch, np, dev):
                   f"replay)", flush=True)
         else:
             qdd[f"ms_b{B}"], qdd[f"plain_ms_b{B}"] = ms, plain_ms
+            if B == QDD_FD_BATCH:
+                qdd[f"bound_ms_b{B}"] = roofline((x, u), [got], count_ops(
+                    lambda: cuda_rbd.kuka_qdd_plain(x, u, 1, grav)))["bound_ms"]
     results.append(qdd)
 
     # -- simulation chain, open loop: the MPC warm start's 63 Euler steps from
@@ -608,19 +735,21 @@ def kernel_phase(torch, np, dev):
     chain = dict(name="sim_chain", route="cuda",
                  source="parallel_ddp_tpu_torch/csrc/sim_chain.cu",
                  replaces="parallel_ddp_tpu/ops/pallas_rbd.py:39", max_abs_err=0.0, ok=True)
-    for label, integ, lead, T in (("warm start", 1, (), N - 1), ("cold rollout", 1, (M,), N // M),
-                                  ("rk3", 3, (), 15)):
+    for label, integ, lead, T, grav in (
+            ("warm start", 1, (), N - 1, 0.0), ("cold rollout", 1, (M,), N // M, 0.0),
+            ("rk3", 3, (), 15, 0.0), ("cold rollout gravity", 1, (M,), N // M, GRAVITY)):
         x0 = f32(rng.normal(0, 0.3, lead + (nx,)))
         u = f32(rng.normal(0, 1.0, lead + (T, nu)))
-        kw = dict(ee_type=1, gravity=0.0, integrator=integ, dt=dt)
-        step = cuda_rollout._kuka_step(1, 0.0, integ, dt)
+        kw = dict(ee_type=1, gravity=grav, integrator=integ, dt=dt)
+        step = cuda_rollout._kuka_step(1, grav, integ, dt)
         call = lambda: cuda_sim_chain.kuka_open_loop_cuda(x0, u, **kw)
         plain = lambda: cuda_sim_chain.open_loop_plain(step, x0, u)
         got = call()
         err, ok = compare("sim_chain", [got], [plain()])
         ms, plain_ms = cuda_ms(call, 50), cuda_ms(plain, 1, warmup=0)
         host_us, kernel_us = host_and_kernel_us(call, 500)
-        print(f"kernels: sim_chain {label} (integrator {integ}, {lead or (1,)} x T={T}): "
+        print(f"kernels: sim_chain {label} (integrator {integ}, gravity {grav}, "
+              f"{lead or (1,)} x T={T}): "
               f"max_abs_err {err:.3e} ({'ok' if ok else 'OUT OF TOLERANCE'}); {ms:.4f} ms vs "
               f"plain {plain_ms:.3f} ms; host {host_us:.2f} us per enqueue (500 enqueues), "
               f"kernel alone {kernel_us:.2f} us ({kernel_us / T:.3f} us per step)", flush=True)
@@ -778,16 +907,7 @@ def timing_phase(torch, np, dev, solver, cold, goal):
     per_solve = read_counts()
     print(f"timing: kernel launches in one replayed warm solve: {json.dumps(per_solve)}",
           flush=True)
-    times = []
-    for _ in range(N_TIMED):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        torch.cuda.synchronize()
-        start.record()
-        one()
-        end.record()
-        torch.cuda.synchronize()
-        times.append(start.elapsed_time(end))
+    times = event_times(one, N_TIMED)
     print(f"timing: warm {N_ITERS}-iteration solve (one graph replay): median "
           f"{float(np.median(times)):.3f} ms, min {min(times):.3f}, max {max(times):.3f} over "
           f"{N_TIMED} solves; host reads {solver.host_syncs} (torch sync-debug count "
@@ -807,6 +927,370 @@ def fig8_goals(torch, np, times, x_init, dev):
     g = np.concatenate([xyz, np.zeros_like(xyz)], axis=1).astype(np.float32)
     return {"ee_goal": torch.as_tensor(g, device=dev),
             "x_target": torch.as_tensor(np.tile(x_init, (len(times), 1)), device=dev)}
+
+
+def plant_cases(np):
+    """The four problems of the plants phase at their presets' full sizes:
+    (preset, start state (n,), start controls (m,), goal, iteration cap),
+    from the JAX package's own uses (tests/test_solver.py:26-110,
+    examples/wafr_ilqr.py:44-48 and its default --max-iter)."""
+    hover = -9.81 * 0.5 / 4.0          # per-rotor thrust balancing gravity
+    kuka_sig = np.concatenate([np.full(7, 1.0), np.full(7, 0.5)])
+    return {
+        "pendulum": ("pendulum_swingup", np.zeros(2), np.zeros(1), [np.pi, 0.0], 100),
+        "cartpole": ("cartpole_swingup", np.zeros(4), np.zeros(1), [0.0, np.pi, 0.0, 0.0], 150),
+        "quadrotor": ("quadrotor_task", np.zeros(12), np.full(4, -hover),
+                      [1.0, 1.0, 0.5] + [0.0] * 9, 100),
+        "kuka_joint": ("kuka_joint", kuka_sig * np.random.default_rng(0).normal(0, 1.0, 14),
+                       np.zeros(7), [-0.5, 1.0, -0.3, 0.5, 0.7, 0.7, 0.0] + [0.0] * 7, 40),
+    }
+
+
+def plant_problems(np):
+    """Every problem the plants phase solves, with its solver config (the
+    fused Riccati sweep on), by path: the four presets at full size (their
+    warm re-solves and kuka_joint's FD solve run the same shapes), the
+    quadrotor at the JAX test's N = 64 over 2 s (tests/test_solver.py:86-101)
+    and the pendulum's MPC loop, N = 32 over 1 s (tests/test_mpc.py:116-135).
+    The kernel phase holds the Riccati kernel at each of their shapes."""
+    from parallel_ddp_tpu_torch import presets
+
+    out = {}
+    for name, (preset, *_, max_iter) in plant_cases(np).items():
+        prob = getattr(presets, preset)()
+        out[name] = (prob, dataclasses.replace(prob.cfg, pallas_riccati=True, max_iter=max_iter))
+    prob = presets.quadrotor_task(num_time_steps=64, total_time=2.0)
+    out["quadrotor_n64"] = (prob, dataclasses.replace(prob.cfg, pallas_riccati=True,
+                                                      max_iter=out["quadrotor"][1].max_iter))
+    prob = presets.pendulum_swingup(num_time_steps=32, total_time=1.0, m_blocks=2, num_alpha=8)
+    out["pendulum_loop"] = (prob, dataclasses.replace(prob.cfg, pallas_riccati=True))
+    return out
+
+
+def convergence(np, name, out, goal, test_size=True):
+    """The JAX package's own convergence checks of this problem
+    (tests/test_solver.py), at its bars: (what they read, what failed).
+    The quadrotor's test runs N = 64 over 2 s; at another size (test_size
+    False) its J ratio bar does not apply: the hover thrust's control cost
+    alone, 0.5 * 5 * 4 * 1.226^2 a knot, is 1,909 of the preset's J0 = 3,036
+    at N = 128 (0.63 of it), against 947 of 2,072 at the test's N = 64."""
+    it = int(out.iters)
+    jt = out.J_trace.cpu().numpy()[: it + 1].astype(np.float64)
+    at = out.alpha_trace.cpu().numpy()[: it + 1]
+    js = [j for j, a in zip(jt, at) if a >= 0]
+    xf = out.x[-1].cpu().numpy().astype(np.float64)
+    md = float(out.max_defect)
+    bad = []
+    if not np.all(np.isfinite(jt)):
+        bad.append("non-finite J")
+    if not all(b <= a + 1e-3 for a, b in zip(js, js[1:])):
+        bad.append("accepted J increased")
+    ratio = js[-1] / js[0]
+    read = (f"accepted J {js[0]:.4f} -> {js[-1]:.4f} (last / first {ratio:.4f}; {len(js) - 1} of "
+            f"{it} steps accepted), max_defect {md:.3e}")
+    if name == "pendulum":
+        bad += [b for b, c in (("last / first >= 0.15", ratio >= 0.15),
+                               ("|q_f - pi| >= 0.2", abs(xf[0] - np.pi) >= 0.2),
+                               ("max_defect >= 0.05", md >= 0.05)) if c]
+        read += f", |q_f - pi| {abs(xf[0] - np.pi):.4f}"
+    elif name == "cartpole":
+        bad += [b for b, c in (("last / first >= 0.55", ratio >= 0.55),
+                               ("max_defect >= 0.75", md >= 0.75)) if c]
+    elif name == "quadrotor":
+        dist = float(np.linalg.norm(xf[:3] - np.asarray(goal[:3])))
+        bad += [b for b, c in (("last / first >= 0.5", test_size and ratio >= 0.5),
+                               ("last / first >= 1", ratio >= 1.0),
+                               ("|xyz_f - goal| >= 0.4", dist >= 0.4)) if c]
+        read += f", |xyz_f - goal| {dist:.4f}"
+    elif not ratio < 1.0:
+        bad.append("J not reduced")
+    return read, bad
+
+
+def first_tie(np, out, tie):
+    """The first iteration at which the solve's decision is a near tie at the
+    rounding level `tie`: a rejected step, or an accepted one that gained less
+    than `tie` of J.  Two float32 runs of the solve (the card's kernels, the
+    CPU's plain versions) may part there, not before."""
+    it = int(out.iters)
+    jt = out.J_trace.cpu().numpy()[: it + 1].astype(np.float64)
+    at = out.alpha_trace.cpu().numpy()[: it + 1]
+    for i in range(1, it + 1):
+        if at[i] < 0 or (jt[i - 1] - jt[i]) / jt[i - 1] < tie:
+            return i
+    return it + 1
+
+
+def traces_read(gpu, cpu, capped):
+    """The two solves' iterations and alphas, as printed."""
+    it_g, it_c = int(gpu.iters), int(cpu.iters)
+    return (f"card iters {it_g}, CPU iters {it_c}{' (capped)' if capped else ''}; alphas card "
+            f"{gpu.alpha_trace[1:it_g + 1].tolist()} CPU {cpu.alpha_trace[1:it_c + 1].tolist()}")
+
+
+def hold_to_cpu(np, label, gpu, cpu, cap=None):
+    """The card's solve against the CPU's (the CPU's capped at `cap`
+    iterations if given: where it stops there, its trace is a prefix of the
+    same solve's): alphas equal up to the CPU trace's first near tie
+    (PLANT_TIE), J within SOLVE_RTOL up to the parting, the final J within
+    SOLVE_RTOL, or PLANT_FINAL_RTOL after a parting.  Returns the printed
+    reading."""
+    it_g, it_c = int(gpu.iters), int(cpu.iters)
+    capped = cap is not None and it_c >= cap
+    k = min(it_g, it_c)
+    part = first_difference(gpu.alpha_trace.cpu(), cpu.alpha_trace, k)
+    if part is None and it_g != it_c and not capped:
+        part = k + 1
+    allowed = first_tie(np, cpu, PLANT_TIE)
+    upto = k + 1 if part is None else part
+    gap = trace_gap(gpu.J_trace, cpu.J_trace, k)
+    end_g = float(gpu.J_trace[it_c]) if capped else float(gpu.J)
+    final = abs(end_g - float(cpu.J)) / abs(float(cpu.J))
+    read = (f"{traces_read(gpu, cpu, capped)}; first difference at {part} (first near tie of "
+            f"the CPU trace at {allowed}); J gap by iteration {at_iters(gap)}, max before the "
+            f"parting {gap[:upto].max():.2e}; final J gap {final:.2e}")
+    if part is not None and part < allowed:
+        fail(f"plants {label}: the card's alphas part from the CPU's at iteration {part}, "
+             f"before the first near tie ({allowed}): {read}")
+    if gap[:upto].max() > SOLVE_RTOL:
+        fail(f"plants {label}: J on the card and the CPU differ by {gap[:upto].max():.2e} > "
+             f"{SOLVE_RTOL} before the paths part: {read}")
+    bar = SOLVE_RTOL if part is None else PLANT_FINAL_RTOL
+    if final > bar:
+        fail(f"plants {label}: final J differs by {final:.2e} > {bar}: {read}")
+    return read
+
+
+def hold_fd_to_cpu(np, gpu, cpu, moved, cap):
+    """kuka_joint's FD solve on the card against the CPU's.  The CPU's FD
+    solves from the start moved by ULP_MOVES ulps (`moved`) part from the
+    CPU's by `env`, the running largest relative J gap (each held at its
+    last J past its end).  Held: J within FD_ENVELOPE_FACTOR x env (never
+    tighter than J_TRACE_FLOOR) at every iteration both solves ran and at
+    their ends, and the card's first step one that the CPU's solve or a
+    moved one takes.  Returns the printed reading."""
+    it_g, it_c = int(gpu.iters), int(cpu.iters)
+    capped = cap is not None and it_c >= cap
+    k = min(it_g, it_c)
+    cj = cpu.J_trace[: it_c + 1].double().numpy()
+    held = lambda o: np.concatenate([o.J_trace[: min(int(o.iters), it_c) + 1].double().numpy(),
+                                     np.full(max(0, it_c - int(o.iters)), float(o.J))])
+    env = np.maximum.accumulate(np.max([np.abs(held(o) - cj) / np.abs(cj) for o in moved], 0))
+    env = np.maximum(env, J_TRACE_FLOOR)
+    gap = trace_gap(gpu.J_trace, cpu.J_trace, k)
+    end_g = float(gpu.J_trace[it_c]) if capped else float(gpu.J)
+    final = abs(end_g - float(cpu.J)) / abs(float(cpu.J))
+    env_end = max([env[-1]] + [abs(float(o.J) - float(cpu.J)) / abs(float(cpu.J)) for o in moved])
+    ratio = max(float((gap / env[: k + 1]).max()), final / env_end)
+    firsts = {int(cpu.alpha_trace[1])} | {int(o.alpha_trace[1]) for o in moved}
+    read = (f"{traces_read(gpu, cpu, capped)}; moved starts' alphas "
+            f"{[o.alpha_trace[1:int(o.iters) + 1].tolist() for o in moved]}; J gap by iteration "
+            f"{at_iters(gap)}, final {final:.2e}; the moved starts' envelope {at_iters(env)}, "
+            f"final {env_end:.2e}; gap / envelope at most {ratio:.3f} (limit "
+            f"{FD_ENVELOPE_FACTOR:g})")
+    if ratio > FD_ENVELOPE_FACTOR or int(gpu.alpha_trace[1]) not in firsts:
+        fail(f"plants kuka_joint FD: the FD solves on the card and the CPU disagree beyond the "
+             f"rounding envelope: {read}")
+    return read
+
+
+def hold_fd_ab(np, prob, cfg, xs, us, dev):
+    """kuka_joint's FD AB at the cold trajectory (one qdd launch), held as
+    tests/test_torch_plants.py holds the FD Jacobian: the card's steps at the
+    very points the FD steps (z +- eps e_i) against the CPU's within the qdd
+    kernel's tolerance; the card's FD AB against the CPU's within their steps'
+    largest gap over eps plus 2 ulps of the column (the difference and the
+    division); the CPU's against the Jacobian kernel's AB within
+    FD_ROUNDING_ULPS ulps of max|x'| over eps plus that kernel's tolerance,
+    and the card's within the sum of the two bounds."""
+    import torch
+
+    from parallel_ddp_tpu_torch.ops.integrators import make_step, make_step_jacobian_fd
+
+    fd = make_step_jacobian_fd(prob.plant, cfg.integrator, cfg.dt, cfg.fd_eps)
+    reset_counts()
+    ab_fd = fd(xs, us)
+    launches = read_counts()["qdd"]
+    ab_cpu = fd(xs.cpu(), us.cpu()).to(dev)
+    ab_k = prob.plant.batched_step_jac(cfg.integrator, cfg.dt)(xs, us)
+    n_s = prob.plant.n_state
+    z = torch.cat([xs, us], -1)
+    delta = torch.eye(z.shape[-1], device=dev) * cfg.fd_eps
+    pts = torch.cat([z + delta[:, None], z - delta[:, None]]).reshape(-1, z.shape[-1])
+    step = make_step(prob.plant, cfg.integrator, cfg.dt)
+    x_card = step(pts[:, :n_s], pts[:, n_s:])
+    x_cpu = step(pts[:, :n_s].cpu(), pts[:, n_s:].cpu()).to(dev)
+    step_err, step_ok = compare("qdd", [x_card], [x_cpu])
+    ulp = 2.0 ** -24
+    tol_pair = step_err / cfg.fd_eps + 2 * ulp * float(ab_cpu.abs().max())
+    rtol, atol = TOL["rbd_jac"]
+    tol_ab = (FD_ROUNDING_ULPS * ulp * float(x_cpu.abs().max()) / cfg.fd_eps
+              + rtol * ab_k.abs() + atol * float(ab_k.abs().max()))
+    pair_err = float((ab_fd - ab_cpu).abs().max())
+    cpu_ok = bool(((ab_cpu - ab_k).abs() <= tol_ab).all())
+    card_ok = bool(((ab_fd - ab_k).abs() <= tol_ab + tol_pair).all())
+    print(f"plants: kuka_joint FD AB at the cold trajectory ({xs.shape[0]} samples, {launches} "
+          f"qdd launch of {pts.shape[0]} samples): the steps at its points, card vs CPU "
+          f"{step_err:.3e} ({'ok' if step_ok else 'OUT OF TOLERANCE'}); FD AB card vs CPU "
+          f"{pair_err:.3e} (bound {tol_pair:.3e}); max |FD - rbd_jac| CPU "
+          f"{float((ab_cpu - ab_k).abs().max()):.3e}, card {float((ab_fd - ab_k).abs().max()):.3e}"
+          f" (bound {FD_ROUNDING_ULPS} ulp(max|x'|) / eps = "
+          f"{FD_ROUNDING_ULPS * ulp * float(x_cpu.abs().max()) / cfg.fd_eps:.3e} + the Jacobian "
+          f"kernel's tolerance, + {tol_pair:.3e} for the card's)", flush=True)
+    if launches != 1 or not (step_ok and pair_err <= tol_pair and cpu_ok and card_ok):
+        fail(f"plants kuka_joint: FD AB out of its bounds or {launches} qdd launches")
+
+
+def plants_phase(torch, np, dev, card):
+    """The WAFR example's pendulum, cart-pole, quadrotor and joint-space Kuka
+    at their presets' full sizes with the fused Riccati sweep: each cold
+    solve one graph replay (launches counted, 0 host reads) held against the
+    same solve on CPU tensors and to the JAX package's convergence bars; a
+    warm 6-iteration re-solve timed; kuka_joint with finite differences; the
+    pendulum's device loop."""
+    from parallel_ddp_tpu_torch.mpc.device_loop import make_device_mpc_loop
+    from parallel_ddp_tpu_torch.mpc.driver import MPCConfig, MPCController, MPCState
+    from parallel_ddp_tpu_torch.solver import make_ilqr_solver
+
+    t_phase = time.perf_counter()
+    by_path, summary = {}, {}
+    problems = plant_problems(np)
+
+    def replay(path, solver, args, **kw):
+        """One solve on the card (the capture first), replayed with the
+        launch counters zeroed just before and read just after; 0 host reads."""
+        solver(*args, **kw)
+        torch.cuda.synchronize()
+        reset_counts()
+        out, syncs = count_syncs(torch, lambda: solver(*args, **kw))
+        torch.cuda.synchronize()
+        by_path[path] = read_counts()
+        require_launched(path, by_path[path])
+        if solver.host_syncs or syncs:
+            fail(f"{path}: the replayed solve read the host ({solver.host_syncs} reads, torch "
+                 f"sync-debug count {syncs})")
+        return out
+
+    def solve_pair(path, prob, cfg, x0, u0, goal, cpu_iters=None):
+        """One cold solve replayed on the card and the same solve on CPU
+        tensors (capped at cpu_iters iterations if given)."""
+        args = [torch.as_tensor(a, device=dev) for a in (x0, u0, goal)]
+        t0 = time.perf_counter()
+        gpu = replay(path, make_ilqr_solver(prob.plant, prob.cost, cfg), args,
+                     initial_rollout=True)
+        card_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        cpu = make_ilqr_solver(prob.plant, prob.cost, cfg)(
+            *(a.cpu() for a in args), initial_rollout=True, iter_limit=cpu_iters)
+        print(f"plants: {path}: cold solve captured and replayed in {card_s:.1f} s with 0 host "
+              f"reads; launches {json.dumps(by_path[path])}; CPU solve "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        return gpu, cpu
+
+    for name, (_, x_start, u_start, goal, _) in plant_cases(np).items():
+        prob, cfg = problems[name]
+        N = cfg.num_time_steps
+        x0 = np.tile(np.asarray(x_start, np.float32), (N, 1))
+        u0 = np.tile(np.asarray(u_start, np.float32), (N, 1))
+        goal = np.asarray(goal, np.float32)
+        cap = PLANT_CPU_ITERS.get(name)
+        gpu, cpu = solve_pair(f"plants_{name}", prob, cfg, x0, u0, goal, cap)
+        print(f"plants: {name}: {hold_to_cpu(np, name, gpu, cpu, cap)}", flush=True)
+        for side, out in (("card", gpu),) + ((("CPU", cpu),) if cap is None else ()):
+            read, bad = convergence(np, name, out, goal, name != "quadrotor")
+            print(f"plants: {name}: {side}: {read}", flush=True)
+            if bad:
+                fail(f"plants {name}: the {side} solve misses the JAX package's bars: {bad}")
+        if name == "quadrotor":
+            prob_t, cfg_t = problems["quadrotor_n64"]
+            test_args = [torch.as_tensor(a, device=dev) for a in (x0[:64], u0[:64], goal)]
+            out_t = replay("plants_quadrotor_n64", make_ilqr_solver(prob_t.plant, prob_t.cost,
+                                                                    cfg_t),
+                           test_args, initial_rollout=True)
+            read, bad = convergence(np, name, out_t, goal)
+            print(f"plants: quadrotor at the JAX test's N = 64 over 2 s: card: {read}; launches "
+                  f"{json.dumps(by_path['plants_quadrotor_n64'])}", flush=True)
+            if bad:
+                fail(f"plants quadrotor (N = 64): misses the JAX package's bars: {bad}")
+
+        # the warm re-solve from the cold solve's end: the same work on every
+        # plant (tol_cost = 0, exactly N_ITERS iterations)
+        warm = make_ilqr_solver(prob.plant, prob.cost,
+                                dataclasses.replace(cfg, tol_cost=0.0, max_iter=N_ITERS))
+        g_dev = torch.as_tensor(goal, device=dev)
+        one = lambda: warm(gpu.x, gpu.u, g_dev, P0=gpu.P, p0=gpu.p, d0=gpu.d)
+        one()
+        reset_counts()
+        w_out = one()
+        torch.cuda.synchronize()
+        per_solve = read_counts()
+        times = event_times(one, N_TIMED)
+        stats = warm.graphs.stats()[-1]
+        w_alphas = w_out.alpha_trace[1:].tolist()
+        summary[name] = dict(warm_ms=float(np.median(times)), body_nodes=stats.body_nodes,
+                             nodes=stats.nodes, launches=per_solve, alphas=w_alphas)
+        print(f"plants: {name}: warm {N_ITERS}-iteration re-solve (one graph replay): median "
+              f"{float(np.median(times)):.3f} ms, min {min(times):.3f}, max {max(times):.3f} over "
+              f"{N_TIMED}; alphas {w_alphas} ({sum(a >= 0 for a in w_alphas)} of {N_ITERS} "
+              f"accepted); graph {stats.nodes} nodes, WHILE bodies {list(stats.body_nodes)} (the "
+              f"first is the iteration's); launches a re-solve {json.dumps(per_solve)}; on {card}",
+              flush=True)
+
+        if name == "kuka_joint":
+            # finite differences: the FD AB at the cold trajectory, then the
+            # FD solve card vs CPU, beside the CPU's from moved starts
+            hold_fd_ab(np, prob, cfg, gpu.x[:-1].contiguous(), gpu.u[:-1].contiguous(), dev)
+            fd_cfg = dataclasses.replace(cfg, use_finite_diff=True)
+            fd_gpu, fd_cpu = solve_pair("plants_kuka_joint_fd", prob, fd_cfg, x0, u0, goal, cap)
+            cpu_fd = make_ilqr_solver(prob.plant, prob.cost, fd_cfg)
+            moved = []
+            for k in ULP_MOVES:
+                xm = x0
+                for _ in range(abs(k)):
+                    xm = np.nextafter(xm, np.float32(np.inf if k > 0 else -np.inf))
+                moved.append(cpu_fd(torch.as_tensor(xm), torch.as_tensor(u0),
+                                    torch.as_tensor(goal), initial_rollout=True, iter_limit=cap))
+            print(f"plants: kuka_joint FD: {hold_fd_to_cpu(np, fd_gpu, fd_cpu, moved, cap)}",
+                  flush=True)
+
+    # the pendulum's closed loop (tests/test_mpc.py:116-135): 3 iterations a
+    # solve, 200 Hz RK3 plant, 0.05 s a control step
+    prob, cfg = problems["pendulum_loop"]
+    ctrl = MPCController(prob.plant, prob.cost, cfg, MPCConfig(max_iters_per_solve=3))
+    run = make_device_mpc_loop(ctrl, sim_rate_hz=200.0, control_period_s=0.05, sim_integrator=3)
+    goal = torch.tensor([np.pi, 0.0], device=dev)
+    x0 = torch.tensor([np.pi - 0.4, 0.3], device=dev)
+    st = ctrl.init_state(x0, t0=0.0, goal=goal)
+    goals = goal[None].expand(PEND_LOOP_STEPS, 2).contiguous()
+    run(st, x0, 0.0, goals)                        # the capture
+    torch.cuda.synchronize()
+    reset_counts()
+    res, syncs = count_syncs(torch, lambda: run(st, x0, 0.0, goals))
+    torch.cuda.synchronize()
+    by_path["plants_pendulum_loop"] = loop_counts = read_counts()
+    require_launched("plants_pendulum_loop", loop_counts)
+    xf = res.x[-1].cpu().numpy()
+    ok_rate = float(res.ok[5:].float().mean())
+    print(f"plants: pendulum device loop ({PEND_LOOP_STEPS} control steps, one graph replay "
+          f"each): final state {xf.tolist()}, ok rate after step 5 {ok_rate:.3f}, host reads "
+          f"{res.host_syncs} (torch sync-debug count {syncs}); launches {json.dumps(loop_counts)}",
+          flush=True)
+    if abs(xf[0] - np.pi) >= 0.1 or abs(xf[1]) >= 0.5 or ok_rate <= 0.8:
+        fail("plants: the pendulum device loop misses tests/test_mpc.py's bars")
+    if res.host_syncs or syncs:
+        fail(f"plants: pendulum loop: {res.host_syncs} host reads, {syncs} syncs")
+    st_cpu = MPCState(*(a.cpu() for a in st))
+    cpu = run(st_cpu, x0.cpu(), 0.0, goals[:PEND_CPU_STEPS].cpu())
+    acc_ok = torch.equal(res.accepted[:PEND_CPU_STEPS].cpu(), cpu.accepted)
+    j_gap = float(((res.J[:PEND_CPU_STEPS].cpu() - cpu.J).abs() / cpu.J.abs()).max())
+    x_gap = float((res.x[:PEND_CPU_STEPS].cpu() - cpu.x).abs().max())
+    print(f"plants: pendulum device loop, {PEND_CPU_STEPS} steps on CPU tensors: same accepts "
+          f"{acc_ok}, J gap {j_gap:.2e} (rtol {SOLVE_RTOL}), state gap {x_gap:.2e} (atol "
+          f"{PEND_X_ATOL})", flush=True)
+    if not acc_ok or j_gap > SOLVE_RTOL or x_gap > PEND_X_ATOL:
+        fail("plants: the pendulum device loop on the card and the CPU disagree")
+    print(f"plants: phase took {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return by_path, summary
 
 
 def fig8_phase(torch, np, dev, card):
@@ -1349,14 +1833,7 @@ def batched_phase(torch, np, dev, cold, canon, fleet, kernels, card):
                 and counts["riccati"] >= N_ITERS) or counts != path_counts:
             fail(f"batched B={Bt}: launches {counts} (want {N_ITERS} of the Jacobian and the "
                  f"rollout kernel, {N_ITERS} or more of Riccati, as at B={BATCH_SIZES[0]})")
-        times = []
-        for _ in range(BATCH_TIMED):
-            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            start.record()
-            call()
-            end.record()
-            torch.cuda.synchronize()
-            times.append(start.elapsed_time(end))
+        times = event_times(call, BATCH_TIMED)
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         t0 = time.perf_counter()
         start.record()
@@ -1399,14 +1876,7 @@ def batched_phase(torch, np, dev, cold, canon, fleet, kernels, card):
     torch.cuda.synchronize()
     (new, info), syncs = count_syncs(torch, step)
     reads = ctrl.host_syncs
-    step_ms = []
-    for _ in range(BATCH_TIMED):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        step()
-        end.record()
-        torch.cuda.synchronize()
-        step_ms.append(start.elapsed_time(end))
+    step_ms = event_times(step, BATCH_TIMED)
     one_st, one_info = ctrl.step(MPCState(*(a[0] for a in sts)), x_act[0], t_now[0],
                                  {k: v[0] for k, v in goals_f.items()}, w)
     acc = info.accepted.cpu().numpy()
@@ -1535,6 +2005,7 @@ def main():
         return
     solver, cold, goal, launches, canon = solve_phase(torch, np, dev)
     median_ms, warm_solve, per_solve = timing_phase(torch, np, dev, solver, cold, goal)
+    plant_launches, plant_summary = plants_phase(torch, np, dev, card)
     fig8_launches, control_step, runner, per_step, fig8_caches, fleet = fig8_phase(
         torch, np, dev, card)
     batched_launches, per_b, batched_caches = batched_phase(torch, np, dev, cold, canon, fleet,
@@ -1567,7 +2038,8 @@ def main():
 
     # launches: the kernel's count on the path LAUNCHES_FROM names (the fig-8
     # closed loop where that runs it); launches_<path>: every path's own count
-    by_path = {"wafr_solve": launches, **fig8_launches, "wafr_batched": batched_launches}
+    by_path = {"wafr_solve": launches, **plant_launches, **fig8_launches,
+               "wafr_batched": batched_launches}
     line = {"kernels": [
         {k: r[k] for k in ("name", "route", "source", "replaces")}
         | {"launches": by_path[LAUNCHES_FROM[r["name"]]][r["name"]],
@@ -1575,14 +2047,18 @@ def main():
            "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
            "bound_by": r["bound_by"], "library_ms": r["library_ms"]}
         | {k: v for k, v in r.items()
-           if k.startswith(("ms_", "plain_ms_b", "bound_ms_b", "host_us", "kernel_us", "bytes",
-                            "operations"))}
+           if k.startswith(("ms_", "plain_ms_", "bound_ms_", "bound_by_", "max_abs_err_",
+                            "host_us", "kernel_us", "bytes", "operations"))}
         | {f"launches_{path}": counts[r["name"]] for path, counts in by_path.items()}
         | {"launches_per_warm_solve": per_solve[r["name"]],
            "launches_per_control_step": per_step[r["name"]]}
         for r in kernels]}
     print(f"solve: median {median_ms:.3f} ms per warm {N_ITERS}-iteration solve on {card}",
           flush=True)
+    print("plants: " + "; ".join(
+        f"{name} {v['warm_ms']:.3f} ms a warm {N_ITERS}-iteration re-solve, iteration body "
+        f"{v['body_nodes'][0]} nodes" for name, v in plant_summary.items()) + f" on {card}",
+        flush=True)
     print("batched: " + "; ".join(f"B={B} {v['ms']:.3f} ms a {N_ITERS}-iteration batched solve, "
                                   f"{v['solves_per_s']:.0f} solves/s" for B, v in per_b.items())
           + f" on {card}", flush=True)

@@ -12,7 +12,7 @@ so a configuration maps 1:1 between the two packages (`interop.py`).
   * `SolveOutput` — the result of one solve, as tensors on the solve's device.
 
 Some fields select JAX-package features that this package does not have yet
-(`bp_assoc_scan`, `use_finite_diff`, `bf16_rollout`, `bf16_cost`); they are
+(`bp_assoc_scan`, `bf16_rollout`, `bf16_cost`); they are
 kept so configurations map 1:1, and the solver raises if one is switched on.
 `scan_unroll` has nothing to act on here (there is no `lax.scan`).
 """

@@ -9,13 +9,15 @@ parity tests use it so that both packages compute on identical inputs.
 from __future__ import annotations
 
 import dataclasses
+import re
 
 import numpy as np
 import torch
 
 from parallel_ddp_tpu_torch.config import CostWeights, SolveOutput, SolverConfig
+from parallel_ddp_tpu_torch.models import Plant, cartpole, pendulum, quadrotor
 from parallel_ddp_tpu_torch.models.kuka import soa
-from parallel_ddp_tpu_torch.models.kuka.model import KukaParams
+from parallel_ddp_tpu_torch.models.kuka.model import KukaParams, kuka
 from parallel_ddp_tpu_torch.mpc.driver import MPCState
 
 
@@ -35,10 +37,15 @@ def cost_weights(w) -> CostWeights:
     return CostWeights(**{k: float(np.asarray(v)) for k, v in w._asdict().items()})
 
 
-def goal(g, device=None) -> dict:
-    """The reference's goal dict ({"ee_goal", "x_target", ...}), one
-    scenario's or a batch's (a leading B on every leaf)."""
-    return {k: tensor(v, device=device) for k, v in g.items()}
+def goal(g, device=None):
+    """The reference's goal, one scenario's or a batch's (a leading B on
+    every leaf): a goal dict ({"ee_goal", "x_target", ...}) as a dict of
+    tensors; a bare array (the joint costs' target state, (n_state,)), a
+    batch of them ((B, n_state), or a sequence of B arrays) as one tensor.
+    Dtypes are kept (the reference's arrays are float32)."""
+    if isinstance(g, dict):
+        return {k: tensor(v, device=device) for k, v in g.items()}
+    return tensor(g, device=device)
 
 
 def warm_start(out, device=None) -> dict:
@@ -53,11 +60,33 @@ def warm_start(out, device=None) -> dict:
     }
 
 
+def _core(core: str) -> str:
+    """The reference's Kuka core as this package's: "pallas" maps to "cuda"
+    (the kernel hooks), every other core to "soa"."""
+    return "cuda" if core == "pallas" else "soa"
+
+
 def kuka_params(params) -> KukaParams:
-    """The reference's `KukaParams`: core "pallas" maps to "cuda" (the kernel
-    hooks), every other core to "soa"."""
-    core = "cuda" if params.core == "pallas" else "soa"
-    return KukaParams(ee_type=params.ee_type, gravity=float(params.gravity), core=core)
+    """The reference's `KukaParams` (its core mapped by `_core`)."""
+    return KukaParams(ee_type=params.ee_type, gravity=float(params.gravity),
+                      core=_core(params.core))
+
+
+_ANALYTIC = {"pendulum": pendulum, "cartpole": cartpole, "quadrotor": quadrotor}
+
+
+def plant(p) -> Plant:
+    """The reference's `Plant` as this package's, by its name: the analytic
+    plants ("pendulum", "cartpole", "quadrotor") by name alone, the Kuka arm
+    ("kuka_ee{ee_type}_g{gravity}_{core}") through the same parameters and
+    core mapping as `kuka_params`."""
+    if p.name in _ANALYTIC:
+        return _ANALYTIC[p.name]()
+    m = re.fullmatch(r"kuka_ee(\d+)_g([^_]+)_(\w+)", p.name)
+    if m is None:
+        raise ValueError(f"no counterpart of the reference plant {p.name!r}")
+    return kuka(KukaParams(ee_type=int(m.group(1)), gravity=float(m.group(2)),
+                           core=_core(m.group(3))))
 
 
 def kuka_constants(cc) -> soa._Consts:

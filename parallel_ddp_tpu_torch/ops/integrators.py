@@ -10,6 +10,8 @@ the exact stage points:
   Midpoint : k1 at x; xm = x + dt/2*k1; x' = x + dt*k2
   RK3      : k1 at x; x2 = x + dt/2*k1; k2 at x2;
              x3 = x + dt*(2*k2 - k1); k3 at x3; x' = x + dt/6*(k1 + 4*k2 + k3)
+`make_step_jacobian_fd` is the central-difference alternative
+(`SolverConfig.use_finite_diff`).
 """
 
 from __future__ import annotations
@@ -69,4 +71,36 @@ def make_step_jacobian(plant: Plant, integrator: int, dt: float) -> Callable:
         a, b = torch.func.jacfwd(step, argnums=(0, 1))(x, u)
         return torch.cat([a, b], dim=1)
 
+    return jac
+
+
+def make_step_jacobian_fd(plant: Plant, integrator: int, dt: float,
+                          eps: float = 1e-4) -> Callable:
+    """Central-finite-difference AB (the reference's USE_FINITE_DIFF variant,
+    `finiteDiffInner`, nisInitHelpers.cuh:138-243), batched: returns
+    jac(xs (S, n_state), us (S, n_ctrl)) -> AB (S, n_state, n_state + n_ctrl),
+    marked `_is_batched` so the solver's derivative stage calls it on the
+    whole time axis at once.
+
+    The 2 (n + m) perturbed copies of every sample, +eps and then -eps on
+    each input in turn, are stacked on a leading axis and stepped by ONE
+    call of the step, so a plant whose dynamics is a kernel (the Kuka "cuda"
+    core's `kuka_qdd`) launches it once per integrator stage for the whole
+    horizon.  Column i is (step(z + eps e_i) - step(z - eps e_i)) / (2 eps),
+    the JAX package's formula term for term."""
+    step = make_step(plant, integrator, dt)
+    n, m = plant.n_state, plant.n_ctrl
+    cache = {}
+
+    def jac(xs, us):
+        key = (xs.device, xs.dtype)
+        if key not in cache:
+            cache[key] = torch.eye(n + m, dtype=xs.dtype, device=xs.device) * eps
+        delta = cache[key]                                          # (n+m, n+m)
+        xu = torch.cat([xs, us], dim=-1)                            # (S, n+m)
+        z = torch.cat([xu + delta[:, None, :], xu - delta[:, None, :]])   # (2(n+m), S, n+m)
+        out = step(z[..., :n], z[..., n:])                          # (2(n+m), S, n)
+        return ((out[:n + m] - out[n + m:]) / (2.0 * eps)).permute(1, 2, 0)
+
+    jac._is_batched = True
     return jac

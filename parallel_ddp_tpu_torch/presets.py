@@ -1,5 +1,7 @@
-"""Ready-made (plant, cost, config) problems (twin of the Kuka part of
-`parallel_ddp_tpu/presets.py`)."""
+"""Ready-made (plant, cost, config) problems (twin of
+`parallel_ddp_tpu/presets.py`): the WAFR example's five problems
+(examples/WAFR_iLQR_examples.cu) with the JAX package's defaults field for
+field, the EE goal helpers and the figure-8 task path."""
 
 from __future__ import annotations
 
@@ -18,19 +20,67 @@ from parallel_ddp_tpu_torch.costs.ee import (
     KUKA_VEL_LIMITS,
     ee_cost,
 )
+from parallel_ddp_tpu_torch.costs.joint import (
+    cartpole_cost,
+    joint_cost,
+    pendulum_cost,
+    quadrotor_cost,
+)
 from parallel_ddp_tpu_torch.device import default_device
+from parallel_ddp_tpu_torch.models import cartpole, pendulum, quadrotor
 from parallel_ddp_tpu_torch.models.base import Plant
 from parallel_ddp_tpu_torch.models.kuka import kuka, kuka_params
 
-# the figure-8 task path lives, as data, in the reference package's tree
-FIG8_GOALS = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-                          "parallel_ddp_tpu", "tasks", "fig8_goals.npz")
+# the figure-8 task path (200 points; the package's own copy of the data)
+FIG8_GOALS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data", "fig8_goals.npz")
 
 
 class Problem(NamedTuple):
     plant: Plant
     cost: CostModel
     cfg: SolverConfig
+
+
+def pendulum_swingup(num_time_steps=128, total_time=4.0, m_blocks=4, num_alpha=16):
+    cfg = SolverConfig(
+        num_time_steps=num_time_steps, total_time=total_time,
+        m_blocks_b=m_blocks, m_blocks_f=m_blocks, num_alpha=num_alpha,
+        alpha_base=0.75, integrator=3, rho_init=10.0,
+    )
+    return Problem(pendulum(), pendulum_cost(num_time_steps), cfg)
+
+
+def cartpole_swingup(num_time_steps=128, total_time=4.0, m_blocks=4, num_alpha=32):
+    cfg = SolverConfig(
+        num_time_steps=num_time_steps, total_time=total_time,
+        m_blocks_b=m_blocks, m_blocks_f=m_blocks, num_alpha=num_alpha,
+        alpha_base=0.75, integrator=3, rho_init=10.0, max_defect_size=0.75,
+    )
+    return Problem(cartpole(), cartpole_cost(num_time_steps), cfg)
+
+
+def quadrotor_task(num_time_steps=128, total_time=4.0, m_blocks=4, num_alpha=16):
+    cfg = SolverConfig(
+        num_time_steps=num_time_steps, total_time=total_time,
+        m_blocks_b=m_blocks, m_blocks_f=m_blocks, num_alpha=num_alpha,
+        alpha_base=0.5, integrator=3, rho_init=1.0,
+    )
+    return Problem(quadrotor(), quadrotor_cost(num_time_steps), cfg)
+
+
+def kuka_joint(num_time_steps=64, total_time=0.5, m_blocks=4, num_alpha=16,
+               integrator=1, mpc_mode=False, core="cuda"):
+    """Kuka N=64 joint-space problem, the WAFR benchmark scale
+    (config.cuh:43-58): full gravity unless `mpc_mode`.  `core="cuda"`
+    routes the derivative stage, the forward simulation and the chains
+    through the kernel ops (`models/kuka/model.py`)."""
+    plant = kuka(kuka_params(mpc_mode=mpc_mode, core=core))
+    cfg = SolverConfig(
+        num_time_steps=num_time_steps, total_time=total_time,
+        m_blocks_b=m_blocks, m_blocks_f=m_blocks, num_alpha=num_alpha,
+        alpha_base=0.5, integrator=integrator, rho_init=12.5,
+    )
+    return Problem(plant, joint_cost("kuka_joint", num_time_steps, 7, 7), cfg)
 
 
 def kuka_ee(num_time_steps=64, total_time=0.5, m_blocks=4, num_alpha=16,

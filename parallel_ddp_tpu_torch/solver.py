@@ -37,7 +37,8 @@ from parallel_ddp_tpu_torch.costs.base import CostModel
 from parallel_ddp_tpu_torch.device import as_tensor
 from parallel_ddp_tpu_torch.models.base import Plant
 from parallel_ddp_tpu_torch.ops.cuda_sim_chain import make_sim_chain
-from parallel_ddp_tpu_torch.ops.integrators import make_step, make_step_jacobian
+from parallel_ddp_tpu_torch.ops.integrators import (make_step, make_step_jacobian,
+                                                    make_step_jacobian_fd)
 from parallel_ddp_tpu_torch.parallel.backward import backward_pass, per_scenario_mask
 from parallel_ddp_tpu_torch.parallel.forward import forward_pass, line_search
 
@@ -67,7 +68,8 @@ def _derivatives(cfg, step_jac, cost_quad, x, u, goal, w):
 
     `step_jac` is either a per-sample jac (vmapped here) or an already-batched
     (S, n)-in (S, n, n+m)-out function (Plant.batched_step_jac — the
-    RBD-Jacobian op on the main path), marked with `_is_batched`."""
+    RBD-Jacobian op on the main path — or the finite-difference AB),
+    marked with `_is_batched`."""
     n, m = x.shape[-1], u.shape[-1]
     xs = x[..., :-1, :].reshape(-1, n)
     us = u[..., :-1, :].reshape(-1, m)
@@ -155,14 +157,16 @@ class _Solver:
     goal or `iter_limit` needs no new capture."""
 
     def __init__(self, plant: Plant, cost: CostModel, cfg: SolverConfig):
-        unported = [f for f in ("use_finite_diff", "bf16_rollout", "bf16_cost",
-                                "bp_assoc_scan") if getattr(cfg, f)]
+        unported = [f for f in ("bf16_rollout", "bf16_cost", "bp_assoc_scan")
+                    if getattr(cfg, f)]
         if unported:
             raise NotImplementedError(f"not ported yet: {', '.join(unported)}")
         self.plant, self.cost, self.cfg = plant, cost, cfg
         self.step_fn = make_step(plant, cfg.integrator, cfg.dt)
         self.chain = make_sim_chain(plant, cfg.integrator, cfg.dt)
-        if plant.batched_step_jac is not None:
+        if cfg.use_finite_diff:
+            self.step_jac = make_step_jacobian_fd(plant, cfg.integrator, cfg.dt, cfg.fd_eps)
+        elif plant.batched_step_jac is not None:
             self.step_jac = plant.batched_step_jac(cfg.integrator, cfg.dt)
             self.step_jac._is_batched = True
         else:

@@ -45,7 +45,7 @@ def test_rbd_jac_kernel(dev):
     torch.testing.assert_close(qdd, ref_qdd, rtol=1e-4, atol=1e-5 * float(ref_qdd.abs().max()))
 
 
-@pytest.mark.parametrize("batch", [1, 37, 8192])
+@pytest.mark.parametrize("batch", [1, 37, 2 * 21 * 63, 8192])
 def test_qdd_kernel(dev, batch):
     rng = np.random.default_rng(batch)
     x, u = _f32(rng, (batch, 14), 0.5, dev), _f32(rng, (batch, 7), 2.0, dev)
@@ -223,6 +223,11 @@ def test_sim_chain_runner_kernel(dev, t0, t, feedback):
                               # of finished steps are refilled; rho per lane
     (4, 2, 4, 4, False),      # the run-time-size body
     (16, 8, 2, 64, True),     # the largest sizes it takes, ring (56 slots) refilled
+    (2, 1, 4, 32, False),     # the pendulum's, cart-pole's and quadrotor's
+    (4, 1, 4, 32, True),      # (N = 128, 4 blocks), one warp's Cholesky at
+    (12, 4, 4, 32, False),    # m = 1 and m = 4
+    (12, 4, 4, 16, True),     # the quadrotor at N = 64 (its JAX test's size)
+    (2, 1, 2, 16, False),     # the pendulum's MPC loop (N = 32, 2 blocks)
 ])
 def test_riccati_kernel_bodies_and_ring(dev, n, m, lanes, steps, rho_lane):
     from parallel_ddp_tpu_torch.config import SolverConfig
@@ -283,6 +288,37 @@ def test_riccati_kernel(dev):
     assert not bool(got[7]) and not bool(ref[7])
     for g, r in zip(got[:7], ref[:7]):
         torch.testing.assert_close(g.cpu(), r, rtol=1e-4, atol=1e-5 * max(float(r.abs().max()), 1.0))
+
+
+GRAVITY = 9.81
+
+
+@pytest.mark.parametrize("integrator", [1, 3])
+def test_kuka_kernels_with_gravity(dev, integrator):
+    """kuka_joint's arm has gravity on: the Jacobian kernel (and its Euler AB
+    epilogue), the rollout kernel and the chain kernel's open loop at
+    g = 9.81 against their plain versions (the tolerances of the g = 0 tests
+    above)."""
+    rng = np.random.default_rng(40 + integrator)
+    dt = 0.5 / 63
+    x, u = _f32(rng, (63, 14), 0.5, dev), _f32(rng, (63, 7), 2.0, dev)
+    jac, qdd = cuda_rbd.kuka_jac_qdd(x, u, 1, GRAVITY)
+    ref_jac, ref_qdd = cuda_rbd.kuka_jac_qdd_plain(x, u, 1, GRAVITY)
+    torch.testing.assert_close(jac, ref_jac, rtol=1e-3, atol=1e-4 * float(ref_jac.abs().max()))
+    torch.testing.assert_close(qdd, ref_qdd, rtol=1e-3, atol=1e-4 * float(ref_qdd.abs().max()))
+    ab = cuda_rbd.make_kuka_ab(1, GRAVITY, integrator, dt)(x, u)
+    ref_ab = cuda_rbd.make_kuka_ab(1, GRAVITY, integrator, dt)(x.cpu(), u.cpu())
+    torch.testing.assert_close(ab.cpu(), ref_ab, rtol=1e-3, atol=1e-4 * float(ref_ab.abs().max()))
+    A, M, nf = 16, 4, 16
+    args = _rollout_inputs(rng, A, M, nf, dev)
+    fused = cuda_rollout.make_kuka_fused_rollout(1, GRAVITY, integrator, dt, M * nf, M, A)
+    for g, r in zip(fused(*args), fused(*[a.cpu() for a in args])):
+        torch.testing.assert_close(g.cpu(), r, rtol=1e-4, atol=1e-5 * max(float(r.abs().max()), 1.0))
+    chain = cuda_sim_chain.make_kuka_sim_chain(1, GRAVITY, integrator, dt)
+    x0, uc = _f32(rng, (4, 14), 0.3, dev), _f32(rng, (4, 16, 7), 1.0, dev)
+    ref = chain.open_loop(x0.cpu(), uc.cpu())
+    torch.testing.assert_close(chain.open_loop(x0, uc).cpu(), ref, rtol=1e-5,
+                               atol=2e-6 * max(float(ref.abs().max()), 1.0))
 
 
 def test_solver_refuses_tf32(dev):
@@ -656,3 +692,53 @@ def test_ee_velocity_cost_is_captured(dev):
     cpu = make_ilqr_solver(prob.plant, prob.cost, cfg)(x0, u0, goal, w, initial_rollout=True)
     assert (cpu.alpha_trace[1:] >= 0).any()
     _assert_same_decisions(out, cpu)
+
+
+# --- the WAFR example's other four problems (presets without kernel hooks,
+# and the Kuka with gravity on and finite differences)
+
+PRESET_CASES = {
+    "pendulum": ("pendulum_swingup", dict(total_time=1.0), [np.pi, 0.0], 0.0),
+    "cartpole": ("cartpole_swingup", dict(total_time=1.0), [0.0, np.pi, 0.0, 0.0], 0.0),
+    "quadrotor": ("quadrotor_task", dict(total_time=1.0), [1.0, 1.0, 0.5] + [0.0] * 9,
+                  9.81 * 0.5 / 4.0),
+    "kuka_joint": ("kuka_joint", {}, [-0.5, 1.0, -0.3, 0.5, 0.7, 0.7, 0.0] + [0.0] * 7, 0.0),
+    "kuka_joint_fd": ("kuka_joint", {}, [-0.5, 1.0, -0.3, 0.5, 0.7, 0.7, 0.0] + [0.0] * 7, 0.0),
+}
+
+
+@pytest.mark.parametrize("name", list(PRESET_CASES))
+def test_preset_graphed_solve_matches_eager(dev, name):
+    """Each preset (N = 16, 2 blocks, 4 alphas, the fused Riccati sweep) as
+    one graph replay against the same body run eagerly on the card, with 0
+    host reads; the plants without kernel hooks capture their step and their
+    vmapped jacfwd node by node; kuka_joint_fd's derivative stage is the FD
+    AB through the forward-dynamics kernel."""
+    from parallel_ddp_tpu_torch import presets
+    from parallel_ddp_tpu_torch.config import CostWeights
+    from parallel_ddp_tpu_torch.solver import make_ilqr_solver
+
+    preset, kw, goal, u_start = PRESET_CASES[name]
+    prob = getattr(presets, preset)(num_time_steps=16, m_blocks=2, num_alpha=4, **kw)
+    cfg = dataclasses.replace(prob.cfg, max_iter=6, pallas_riccati=True,
+                              use_finite_diff=name.endswith("_fd"))
+    solver = make_ilqr_solver(prob.plant, prob.cost, cfg)
+    n, m = prob.plant.n_state, prob.plant.n_ctrl
+    x0 = torch.zeros(16, n, device=dev)
+    if n == 14:
+        x0 += torch.as_tensor(np.random.default_rng(0).normal(0, 0.5, 14).astype(np.float32),
+                              device=dev)
+    u0 = torch.full((16, m), u_start, device=dev)
+    g = torch.tensor(goal, dtype=torch.float32, device=dev)
+    counters = (cuda_riccati.riccati_cuda.counter, cuda_rbd.kuka_qdd_cuda.counter)
+    for c in counters:
+        c.reset()
+    graphed = solver(x0, u0, g, initial_rollout=True)
+    assert solver.host_syncs == 0 and len(solver.graphs) == 1
+    eager, reads = solver.run(x0, u0, g, None, None, None, cfg.max_iter, CostWeights(), True,
+                              False)
+    assert reads > 0
+    _assert_same_run(graphed, eager)
+    assert cuda_riccati.riccati_cuda.counter.launches > 0
+    if name.endswith("_fd"):
+        assert cuda_rbd.kuka_qdd_cuda.counter.launches > 0

@@ -46,7 +46,9 @@ def test_port_has_modules():
                      "ops/cuda_rollout.py", "ops/cuda_riccati.py", "ops/build.py",
                      "parallel/backward.py", "parallel/forward.py", "costs/ee.py",
                      "mpc/controls.py", "mpc/driver.py", "mpc/device_loop.py",
-                     "mpc/simulator.py", "ops/cuda_sim_chain.py", "device.py", "graphs.py"):
+                     "mpc/simulator.py", "ops/cuda_sim_chain.py", "device.py", "graphs.py",
+                     "models/pendulum.py", "models/cartpole.py", "models/quadrotor.py",
+                     "costs/joint.py"):
         assert expected in names
 
 
@@ -62,6 +64,75 @@ def test_guard_detects_forbidden_imports(tmp_path):
                      "import parallel_ddp_tpu_torch\n")
     assert [n for n in _imports(probe) if _forbidden(n)] == [
         "jax.numpy", "parallel_ddp_tpu.solver"]
+
+
+# a path into the reference package's tree: its name as a path component
+# ("parallel_ddp_tpu/...", or "parallel_ddp_tpu" alone as os.path.join takes
+# it); a file:line citation of its sources ("parallel_ddp_tpu/ops/x.py:12",
+# what chip_smoke.py's kernel line names as `replaces`) is no path that is read
+_REF_PATH = re.compile(r"(?<![\w.])parallel_ddp_tpu(?:[/\\]|$)")
+_CITATION = re.compile(r"parallel_ddp_tpu/[\w/]+\.py:\d+")
+
+
+def _code_strings(path):
+    """The string constants of a file that are not docstrings."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    docs = set()
+    for node in ast.walk(tree):
+        if isinstance(node, (ast.Module, ast.ClassDef, ast.FunctionDef, ast.AsyncFunctionDef)):
+            body = node.body
+            if body and isinstance(body[0], ast.Expr) and isinstance(body[0].value, ast.Constant):
+                docs.add(id(body[0].value))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Constant) and isinstance(node.value, str) and id(node) not in docs:
+            yield node.value
+
+
+def _reference_paths(path):
+    return [s for s in _code_strings(path)
+            if _REF_PATH.search(s) and not _CITATION.fullmatch(s)]
+
+
+@pytest.mark.parametrize("path", _port_files(), ids=lambda p: p.relative_to(ROOT).as_posix())
+def test_no_path_into_the_reference_tree(path):
+    """The port reads no file of the reference package: no string of its code
+    names a path into `parallel_ddp_tpu/` (the figure-8 data is the port's
+    own copy)."""
+    bad = _reference_paths(path)
+    assert not bad, f"{path.relative_to(ROOT)} names paths into the reference: {bad}"
+
+
+def test_guard_detects_reference_paths(tmp_path):
+    probe = tmp_path / "probe.py"
+    probe.write_text(
+        '"""Twin of `parallel_ddp_tpu/presets.py`."""\n'
+        'import os\n'
+        'A = os.path.join(os.path.dirname(__file__), "parallel_ddp_tpu", "tasks", "g.npz")\n'
+        'B = "../parallel_ddp_tpu/tasks/fig8_goals.npz"\n'
+        'C = dict(replaces="parallel_ddp_tpu/ops/pallas_rbd.py:48")\n'
+        'D = "parallel_ddp_tpu_torch/csrc/qdd.cu"\n')
+    assert sorted(_reference_paths(probe)) == ["../parallel_ddp_tpu/tasks/fig8_goals.npz",
+                                               "parallel_ddp_tpu"]
+
+
+def test_fig8_data_is_the_ports_own_copy():
+    """The figure-8 task path ships inside the port (package data), byte for
+    byte the reference's."""
+    from parallel_ddp_tpu_torch import presets
+
+    own = pathlib.Path(presets.FIG8_GOALS)
+    assert own.resolve().is_relative_to(PORT.resolve())
+    assert own.read_bytes() == (ROOT / "parallel_ddp_tpu" / "tasks" / "fig8_goals.npz").read_bytes()
+    assert '"data/*.npz"' in (ROOT / "pyproject.toml").read_text()
+
+
+def test_pyproject_lists_every_port_package():
+    """Every directory of the port that holds an `__init__.py` is a package
+    that pyproject.toml installs."""
+    text = (ROOT / "pyproject.toml").read_text()
+    for init in PORT.rglob("__init__.py"):
+        name = ".".join(init.parent.relative_to(ROOT).parts)
+        assert f'"{name}"' in text, name
 
 
 def _entry_points():
