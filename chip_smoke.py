@@ -21,10 +21,11 @@ Phases (each prints one line; any failure exits non-zero):
                T = 15 RK3; the Riccati sweep at the Kuka's sizes, on blocks of
                96 steps, longer than its ring of staged steps, and at n = 4,
                m = 2, the run-time-size body, and at every shape a path of
-               the plants phase gives it, from the configs that phase solves
-               with: (n, m) = (2, 1), (4, 1), (12, 4) over 4 lanes of 32
-               steps, (14, 7) and (12, 4) over 4 lanes of 16, (2, 1) over 2
-               lanes of 16, each timed beside its bound); the Kuka kernels
+               the plants and constraints phases gives it, from the configs
+               those phases solve with: (n, m) = (2, 1), (4, 1), (12, 4)
+               over 4 lanes of 32 steps, (14, 7) and (12, 4) over 4 lanes of
+               16, (2, 1) over 2 lanes of 16 and over 2 lanes of 24, each
+               timed beside its bound); the Kuka kernels
                also at gravity 9.81 (kuka_joint's) and
                the forward dynamics at kuka_joint's FD batch of 2,646 samples;
                the wrappers' host cost per enqueue apart from the kernels' own
@@ -60,6 +61,24 @@ Phases (each prints one line; any failure exits non-zero):
                the start by one or two ulps makes on the CPU); the
                pendulum's device closed loop of
                tests/test_mpc.py (30 control steps, 3 on CPU tensors).
+  5c. constraints — box constraints (`parallel_ddp_tpu_torch/
+               constraints.py`) at the WAFR width, each path with its own
+               launch counts: the torque-limited WAFR Kuka EE solve of
+               tests/test_constraints.py:110-131 at N = 64 (|u_i| <= 40 Nm,
+               6 outer x at most 40 inner iterations through
+               `make_al_solver`: one replay an inner solve, one host read an
+               outer iteration and one for base_J), from the goal moved by
+               -10..10 ulps, held to the JAX package's own readings over
+               the same goals (the test's violation bar holds at N = 16
+               only), its first outer solve against CPU tensors (8
+               iterations), the inner replays timed; a constrained batched WAFR solve at
+               B = 256 (6 iterations, lam scaled per scenario; scenarios 0,
+               128 and 255 against their single solves by the batched
+               phase's rule); the pendulum constrained MPC closed loop of
+               tests/test_constraints.py:63-107 (200 periods at 50 Hz, one
+               `ALMPCController` replay each, two 100 Hz RK3 plant steps of
+               the clipped command, 0 host reads), held to that test's bars,
+               its first 3 periods against CPU tensors, a period timed.
   6. fig8    — the figure-8 closed loop of benchmarks/fig8.py through the
                port's MPC controller and device loop, one graph replay per
                control step: cold start (one replay of the 50-iteration
@@ -247,6 +266,47 @@ FD_ENVELOPE_FACTOR = 2.0
 PEND_LOOP_STEPS = 30
 PEND_CPU_STEPS = 3
 PEND_X_ATOL = 1e-4
+# constraints phase (parallel_ddp_tpu_torch/constraints.py), at the WAFR
+# width: tests/test_constraints.py:110-131's torque-limited Kuka EE solve
+# (|u_i| <= 40 Nm, 6 outer iterations of at most 40 inner ones, from zeros
+# toward (0.3, -0.3, 0.9)) at N = 64 in place of N = 16; its first outer
+# solve on CPU tensors, capped as kuka_joint's is
+AL_U_MAX = 40.0
+AL_GOAL = [0.3, -0.3, 0.9]
+AL_MAX_OUTER = 6
+AL_MAX_ITER = 40
+AL_U_BAR = AL_U_MAX * 1.001
+AL_VIOL_BAR = 2e-3
+AL_START_ERR = 0.595           # the straight-up home EE's distance to AL_GOAL
+AL_EE_GAIN = 0.1
+# At N = 64 the JAX package's own solve misses the test's violation bar
+# (set at N = 16), and its reading is no stable number: the outer loop's
+# path parts at near ties, so moving the goal by a few ulps moves the last
+# violation by an order of magnitude.  So the solve runs from the goal moved
+# by -AL_ULPS..AL_ULPS float32 ulps, and is held as the JAX package reads
+# the same goals (scripts/jax_torque_limited_n64.py, on a CPU): every EE
+# error within the test's bar, as every JAX reading is; the median of the
+# last violations and of max|u| at most the JAX readings' upper quartile.
+# The JAX package's 21 readings: last violation 2.117e-3 to 0.1065, median
+# 2.361e-3, none below 2e-3; max|u| 40.0021 to 40.1065 (one above the
+# test's 40.04); EE error 0.3233 to 0.3252 m
+AL_ULPS = 10
+AL_JAX_Q3 = {"last_violation": 7.778e-3, "max_abs_u": 40.00778}
+AL_CPU_ITERS = PLANT_CPU_ITERS["kuka_joint"]
+# the constrained batched WAFR solve: scenario b's multipliers are the
+# torque-limited solve's times b / (B - 1); the batched phase's rule
+AL_BATCH = 256
+AL_BATCH_SAMPLES = (0, 128, 255)
+# tests/test_constraints.py:63-107's constrained pendulum MPC: |u| <= 6,
+# mu 50, 200 periods at 50 Hz, two 100 Hz RK3 plant steps of the clipped
+# command each; its bars
+AL_PEND_U_MAX = 6.0
+AL_PEND_MU = 50.0
+AL_PEND_PERIODS = 200
+AL_PEND_SUBSTEPS = 2
+AL_PEND_SIM_DT = 0.01
+AL_PEND_BARS = dict(q_err=0.05, qd=0.1, head=AL_PEND_U_MAX * 1.05, tail=AL_PEND_U_MAX * 1.25,
+                    plan=AL_PEND_U_MAX + 1e-2)
 # the paths driven, each with the launch counters zeroed just before it and
 # read just after, and the kernels each must launch
 PATH_KERNELS = {
@@ -261,6 +321,9 @@ PATH_KERNELS = {
     "plants_kuka_joint": ("rbd_jac", "rollout", "riccati", "sim_chain"),
     "plants_kuka_joint_fd": ("rollout", "riccati", "qdd", "sim_chain"),
     "plants_pendulum_loop": ("riccati",),
+    "constrained_wafr": ("rbd_jac", "rollout", "riccati", "sim_chain"),
+    "constrained_batched": ("rbd_jac", "rollout", "riccati", "sim_chain"),
+    "constrained_pendulum_loop": ("riccati",),
 }
 # the path whose count is a kernel's `launches` in the kernels line: the fig-8
 # closed loop, and for the kernel it does not run, the block re-rollout loop
@@ -606,8 +669,9 @@ def kernel_phase(torch, np, dev):
     #    Kuka's sizes (the compile-time-size body), 2 lanes x 96 steps at the
     #    same sizes (more steps than the ring's 73 slots: the slots of finished
     #    steps are refilled), 4 lanes x 4 steps at n = 4, m = 2 (the
-    #    run-time-size body), and every shape of a plants-phase path (each
-    #    config that phase solves with), each against run_block
+    #    run-time-size body), and every shape of a plants- or
+    #    constraints-phase path (each config those phases solve with), each
+    #    against run_block
     synth = lambda n_steps, lanes=M: SolverConfig(num_time_steps=n_steps, m_blocks_b=lanes,
                                                   m_blocks_f=4, num_alpha=A)
 
@@ -631,8 +695,8 @@ def kernel_phase(torch, np, dev):
     cases = [("n=14 m=7, 4 lanes x 16 steps, all staged", synth(N), nx, nu, None),
              ("n=14 m=7, 2 lanes x 96 steps, ring refilled", synth(192, 2), nx, nu, None),
              ("n=4 m=2, run-time sizes", synth(16), 4, 2, None)]
-    paths = {}                # a plants-phase shape -> the paths that run it
-    for path, (prob, cfg) in plant_problems(np).items():
+    paths = {}                # a plants- or constraints-phase shape -> the paths that run it
+    for path, (prob, cfg) in {**plant_problems(np), **constrained_problems(np)}.items():
         n_x, n_u = prob.plant.n_state, prob.plant.n_ctrl
         key = (cfg.num_time_steps, cfg.m_blocks_b, cfg.m_blocks_f, cfg.state_reg, n_x, n_u)
         paths.setdefault(key, (cfg, []))[1].append(path)
@@ -759,7 +823,14 @@ def kernel_phase(torch, np, dev):
             chain.update(ms=ms, plain_ms=plain_ms, host_us=host_us, kernel_us=kernel_us,
                          **roofline((x0, u), [got], count_ops(plain)))
         else:
-            chain[f"ms_{label.replace(' ', '_')}"] = ms
+            key = label.replace(" ", "_")
+            bound = roofline((x0, u), [got], count_ops(plain))
+            chain.update({f"ms_{key}": ms, f"plain_ms_{key}": plain_ms,
+                          f"bound_ms_{key}": bound["bound_ms"],
+                          f"bound_by_{key}": bound["bound_by"]})
+            print(f"kernels: sim_chain {label}: bound {bound['bound_ms']:.3e} ms by "
+                  f"{bound['bound_by']} ({bound['bytes']} B, {bound['operations']} operations)",
+                  flush=True)
     results.append(chain)
 
     for r in results:
@@ -1293,6 +1364,267 @@ def plants_phase(torch, np, dev, card):
     return by_path, summary
 
 
+def constrained_problems(np):
+    """Every problem the constraints phase solves, with its solver config (the
+    fused Riccati sweep on), by path: the WAFR Kuka EE problem for the
+    torque-limited solve and the constrained batched solve (6 iterations,
+    tol_cost 0), and tests/test_constraints.py:63-107's pendulum, N = 48
+    over 2 s, 2 + 2 blocks, 8 alphas, RK3.  The kernel phase holds the
+    Riccati kernel at each of their shapes."""
+    from parallel_ddp_tpu_torch import presets
+
+    kuka = presets.kuka_ee()
+    cfg = dataclasses.replace(kuka.cfg, max_iter=AL_MAX_ITER, pallas_riccati=True)
+    pend = presets.pendulum_swingup(num_time_steps=48, total_time=2.0, m_blocks=2, num_alpha=8)
+    return {"constrained_wafr": (kuka, cfg),
+            "constrained_batched": (kuka, dataclasses.replace(cfg, max_iter=N_ITERS,
+                                                              tol_cost=0.0)),
+            "constrained_pendulum_loop": (pend, dataclasses.replace(pend.cfg,
+                                                                   pallas_riccati=True))}
+
+
+def constraints_phase(torch, np, dev, card):
+    """Box constraints at the WAFR width: the torque-limited Kuka EE solve
+    (`make_al_solver`: the outer loop on the host, each inner solve one
+    replay), a constrained batched solve with a lam per scenario, and the
+    pendulum's constrained MPC closed loop (`ALMPCController`, one replay a
+    period); each path's launches counted with the counters zeroed just
+    before it."""
+    from torch.utils import _pytree as pytree
+
+    from parallel_ddp_tpu_torch.constraints import (ALConfig, ALMPCController, BoxConstraints,
+                                                    al_cost, make_al_solver)
+    from parallel_ddp_tpu_torch.mpc.driver import MPCConfig, MPCState
+    from parallel_ddp_tpu_torch.ops.integrators import make_step
+    from parallel_ddp_tpu_torch.parallel.sharding import make_batched_solver
+    from parallel_ddp_tpu_torch.presets import ee_goal
+    from parallel_ddp_tpu_torch.solver import make_ilqr_solver
+
+    t_phase = time.perf_counter()
+    problems = constrained_problems(np)
+    by_path, summary = {}, {}
+    on_cpu = lambda tree: pytree.tree_map(lambda t: t.cpu(), tree)
+
+    # -- the torque-limited WAFR Kuka EE solve: the first call captures the
+    #    inner solver's two graphs (cold, warm), the second is counted
+    prob, cfg = problems["constrained_wafr"]
+    N, n, m = cfg.num_time_steps, prob.plant.n_state, prob.plant.n_ctrl
+    con = BoxConstraints(n_state=n, n_ctrl=m, u_min=[-AL_U_MAX] * m, u_max=[AL_U_MAX] * m)
+    al_cfg = ALConfig(max_outer=AL_MAX_OUTER)
+    al = make_al_solver(prob.plant, prob.cost, cfg, con, al_cfg)
+    goal = ee_goal(AL_GOAL, device=dev)
+    x0, u0 = torch.zeros(N, n, device=dev), torch.zeros(N, m, device=dev)
+    t0 = time.perf_counter()
+    al(x0, u0, goal)
+    torch.cuda.synchronize()
+    capture_s = time.perf_counter() - t0
+    reset_counts()
+    t0 = time.perf_counter()
+    (out, info), syncs = count_syncs(torch, lambda: al(x0, u0, goal))
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    by_path["constrained_wafr"] = read_counts()
+    require_launched("constrained_wafr", by_path["constrained_wafr"])
+    u_peak = float(out.u.abs().max())
+    ee_err = float(torch.linalg.norm(prob.plant.ee_pos(out.x[-1][:7])[:3]
+                                     - torch.tensor(AL_GOAL, device=dev)))
+    viols = info["violations"]
+    reads = info["outer_iters"] + 1
+    print(f"constraints: torque-limited WAFR solve (|u| <= {AL_U_MAX:g} Nm, N = {N}, at most "
+          f"{AL_MAX_OUTER} outer x {AL_MAX_ITER} inner iterations): {info['outer_iters']} outer "
+          f"iterations, violations {[float(f'{v:.4e}') for v in viols]}, final mu "
+          f"{info['mu']:g}, base_J {info['base_J']:.4f} (AL J {float(out.J):.4f}), max|u| "
+          f"{u_peak:.5f}, EE error {ee_err:.4f} m (start {AL_START_ERR}); {wall_s:.3f} s of host "
+          f"wall time (the captures before it {capture_s:.1f} s); host reads {syncs} (torch "
+          f"sync-debug count: one a violation and one for base_J, {reads} expected), inner "
+          f"solves' own {al.solver.host_syncs}; launches {json.dumps(by_path['constrained_wafr'])}",
+          flush=True)
+    if syncs != reads or al.solver.host_syncs:
+        fail(f"constraints: the torque-limited solve read the host {syncs} times (want {reads}) "
+             f"and its inner solves {al.solver.host_syncs}")
+    # the same solve from the goal moved by -AL_ULPS..AL_ULPS ulps: the
+    # readings' spread, held to the JAX package's (AL_JAX_Q3)
+    readings = {}
+    for k in range(-AL_ULPS, AL_ULPS + 1):
+        g = np.asarray(AL_GOAL, np.float32)
+        for _ in range(abs(k)):
+            g = np.nextafter(g, np.float32(np.inf if k > 0 else -np.inf))
+        o, inf = (out, info) if k == 0 else al(x0, u0, ee_goal(g.tolist(), device=dev))
+        err = float(torch.linalg.norm(prob.plant.ee_pos(o.x[-1][:7])[:3]
+                                      - torch.tensor(AL_GOAL, device=dev)))
+        readings[k] = (inf["violations"][-1], float(o.u.abs().max()), err)
+    v, u_max, errs = (np.asarray([r[i] for r in readings.values()]) for i in range(3))
+    quart = lambda a: "[" + ", ".join(f"{q:.4g}" for q in np.quantile(a, [0, .25, .5, .75, 1])) + "]"
+    test_bars = {f"max|u| <= {AL_U_BAR:g}": u_peak <= AL_U_BAR,
+                 f"last violation < {AL_VIOL_BAR:g}": viols[-1] < AL_VIOL_BAR,
+                 f"EE error < {AL_START_ERR - AL_EE_GAIN:g}": ee_err < AL_START_ERR - AL_EE_GAIN}
+    summary["al_spread"] = dict(last_violation=sorted(v.tolist()), max_abs_u=sorted(u_max.tolist()),
+                                ee_err=sorted(errs.tolist()))
+    print(f"constraints: the JAX test's bars (set at N = 16) on this solve: {test_bars}; the same "
+          f"solve from the goal moved by -{AL_ULPS}..{AL_ULPS} ulps ({len(v)} solves): last "
+          f"violation quartiles (min, q1, median, q3, max) {quart(v)} (the JAX package's q3 "
+          f"{AL_JAX_Q3['last_violation']}), max|u| {quart(u_max)} (q3 "
+          f"{AL_JAX_Q3['max_abs_u']}), EE error {quart(errs)}; by k "
+          + ", ".join(f"{k}: {r[0]:.3e}" for k, r in readings.items()), flush=True)
+    bad = [b for b, c in (
+        (f"median last violation > {AL_JAX_Q3['last_violation']}",
+         np.median(v) > AL_JAX_Q3["last_violation"]),
+        (f"median max|u| > {AL_JAX_Q3['max_abs_u']}", np.median(u_max) > AL_JAX_Q3["max_abs_u"]),
+        (f"an EE error >= {AL_START_ERR - AL_EE_GAIN:g}",
+         errs.max() >= AL_START_ERR - AL_EE_GAIN)) if c]
+    if bad:
+        fail(f"constraints: the torque-limited WAFR solve reads worse than the JAX package's: {bad}")
+
+    # its first outer solve (lam 0, mu_init) replayed, then on CPU tensors
+    # capped at AL_CPU_ITERS iterations: the same alphas, J within SOLVE_RTOL
+    lam0 = torch.zeros(N, con.n_c, device=dev)
+    first_goal = {"base": goal, "lam": lam0, "mu": torch.full((), al_cfg.mu_init, device=dev)}
+    first = al.solver(x0, u0, first_goal, initial_rollout=True)
+    cpu_solver = make_ilqr_solver(prob.plant, al_cost(prob.cost, con, N - 1), cfg)
+    t0 = time.perf_counter()
+    cpu = cpu_solver(x0.cpu(), u0.cpu(), on_cpu(first_goal), initial_rollout=True,
+                     iter_limit=AL_CPU_ITERS)
+    cpu_s = time.perf_counter() - t0
+    k = int(cpu.iters)
+    part = first_difference(first.alpha_trace.cpu(), cpu.alpha_trace, k)
+    gap = trace_gap(first.J_trace, cpu.J_trace, k)
+    print(f"constraints: first outer solve, card against CPU tensors ({cpu_s:.1f} s, capped at "
+          f"{AL_CPU_ITERS}): {traces_read(first, cpu, k >= AL_CPU_ITERS)}; J gap by iteration "
+          f"{at_iters(gap)}", flush=True)
+    if part is not None or (k < AL_CPU_ITERS and int(first.iters) != k) or gap.max() > SOLVE_RTOL:
+        fail(f"constraints: the first outer solve on the card and the CPU disagree (first "
+             f"difference at {part}, J gap up to {gap.max():.2e}, rtol {SOLVE_RTOL})")
+
+    # ms per inner-solve replay: the first outer solve (cold, from zeros) and
+    # the last one's warm re-solve with the final multipliers
+    mu_last = torch.full((), info["mu"], device=dev)
+    last_goal = {"base": goal, "lam": info["lam"], "mu": mu_last}
+    warm = lambda: al.solver(out.x, out.u, last_goal, P0=out.P, p0=out.p, d0=out.d)
+    w_out = warm()
+    cold = lambda: al.solver(x0, u0, first_goal, initial_rollout=True)
+    ms = {name: float(np.median(event_times(fn, N_TIMED))) for name, fn in
+          (("cold", cold), ("warm", warm))}
+    summary["inner_ms"] = ms
+    print(f"constraints: inner-solve replays (median of {N_TIMED}, CUDA events): cold first "
+          f"outer solve {ms['cold']:.3f} ms for {int(first.iters)} iterations, warm re-solve with "
+          f"the final multipliers {ms['warm']:.3f} ms for {int(w_out.iters)} iterations; graphs "
+          f"{len(al.solver.graphs)} (cold, warm) for every outer iteration and call; on {card}",
+          flush=True)
+
+    # -- the constrained batched WAFR solve: one replay of 6 iterations, a
+    #    different lam each scenario, three scenarios against their single
+    #    solves by the batched phase's rule
+    prob_b, cfg_b = problems["constrained_batched"]
+    cost_b = al_cost(prob_b.cost, con, N - 1)
+    B = AL_BATCH
+    tile = lambda t: t[None].expand((B,) + t.shape).contiguous()
+    scale = torch.linspace(0.0, 1.0, B, device=dev)
+    goals = {"base": pytree.tree_map(tile, goal), "lam": scale[:, None, None] * info["lam"],
+             "mu": torch.full((B,), info["mu"], device=dev)}
+    x0s, u0s = tile(x0), tile(u0)
+    solve = make_batched_solver(prob_b.plant, cost_b, cfg_b)
+    solve(x0s, u0s, goals)                                         # the capture
+    torch.cuda.synchronize()
+    reset_counts()
+    out_b, syncs_b = count_syncs(torch, lambda: solve(x0s, u0s, goals))
+    torch.cuda.synchronize()
+    by_path["constrained_batched"] = read_counts()
+    require_launched("constrained_batched", by_path["constrained_batched"])
+    J = out_b.J.cpu().numpy()
+    batch_ms = float(np.median(event_times(lambda: solve(x0s, u0s, goals), BATCH_TIMED)))
+    summary["batched_ms"] = batch_ms
+    print(f"constraints: batched WAFR solve at B={B} ({cfg_b.max_iter} iterations, tol_cost "
+          f"{cfg_b.tol_cost:g}, lam scaled 0 to 1 over the scenarios): {batch_ms:.3f} ms a replay "
+          f"(median of {BATCH_TIMED}), {B / batch_ms * 1e3:.0f} solves/s; J {J.min():.4f} to "
+          f"{J.max():.4f} ({len(set(J.tolist()))} distinct); host reads "
+          f"{solve.solver.host_syncs} (torch sync-debug count {syncs_b}); launches "
+          f"{json.dumps(by_path['constrained_batched'])}", flush=True)
+    if solve.solver.host_syncs or syncs_b or not np.all(np.isfinite(J)) or len(set(J.tolist())) < 2:
+        fail("constraints: the batched solve read the host, gave a non-finite J, or its "
+             "scenarios' multipliers took no effect")
+    single = make_ilqr_solver(prob_b.plant, cost_b, cfg_b)
+    for b in AL_BATCH_SAMPLES:
+        hold_scenario(torch, np, "constraints: batched", solve, single, out_b, x0s, u0s, goals, b)
+    del out_b
+
+    # -- the pendulum's constrained MPC closed loop: one replay a period, two
+    #    RK3 plant steps of the clipped command; peaks kept on the device
+    prob_p, cfg_p = problems["constrained_pendulum_loop"]
+    con_p = BoxConstraints(n_state=2, n_ctrl=1, u_min=[-AL_PEND_U_MAX], u_max=[AL_PEND_U_MAX])
+    ctrl = ALMPCController(prob_p.plant, prob_p.cost, cfg_p,
+                           MPCConfig(max_iters_per_solve=N_ITERS), con_p, mu=AL_PEND_MU)
+    sim = make_step(prob_p.plant, 3, AL_PEND_SIM_DT)
+
+    def closed_loop(st, lam, x, goal_p, periods, record):
+        t = 0.0
+        zero = torch.zeros((), device=x.device)
+        head, tail, executed, rec = zero, zero, zero, []
+        for i in range(periods):
+            st, lam, step_info = ctrl.step(st, lam, x, t, goal_p)
+            head = torch.maximum(head, st.u[0].abs().max())
+            tail = torch.maximum(tail, st.u.abs().max())
+            for _ in range(AL_PEND_SUBSTEPS):
+                u = con_p.clip_u(st.u[0])
+                executed = torch.maximum(executed, u.abs().max())
+                x = sim(x, u)
+                t += AL_PEND_SIM_DT
+            if i < record:
+                rec.append((step_info.J, step_info.accepted, x))
+        return st, lam, x, t, head, tail, executed, rec
+
+    goal_p = torch.tensor([np.pi, 0.0], device=dev)
+    x_start = torch.zeros(2, device=dev)
+    st0, lam0 = ctrl.init_state(x_start, t0=0.0, goal=goal_p)
+    ctrl.step(st0, lam0, x_start, 0.0, goal_p)                     # the capture
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    res, syncs_p = count_syncs(torch, lambda: closed_loop(st0, lam0, x_start, goal_p,
+                                                          AL_PEND_PERIODS, PEND_CPU_STEPS))
+    torch.cuda.synchronize()
+    loop_s = time.perf_counter() - t0
+    by_path["constrained_pendulum_loop"] = read_counts()
+    require_launched("constrained_pendulum_loop", by_path["constrained_pendulum_loop"])
+    st_f, lam_f, x_f, t_f, head, tail, executed, rec = res
+    xf = x_f.cpu().numpy()
+    read = dict(q_err=abs(float(xf[0]) - np.pi), qd=abs(float(xf[1])), head=float(head),
+                tail=float(tail), plan=float(st_f.u.abs().max()))
+    period_ms = float(np.median(event_times(lambda: ctrl.step(st_f, lam_f, x_f, t_f, goal_p),
+                                            N_TIMED)))
+    summary["period_ms"] = period_ms
+    stats = ctrl.graphs.stats()[0]
+    print(f"constraints: pendulum constrained MPC ({AL_PEND_PERIODS} periods, one replay each, "
+          f"|u| <= {AL_PEND_U_MAX:g}, mu {AL_PEND_MU:g}): final state {xf.tolist()}; |q - pi| "
+          f"{read['q_err']:.4f}, |qd| {read['qd']:.4f}, head peak {read['head']:.4f}, tail peak "
+          f"{read['tail']:.4f}, final plan {read['plan']:.4f}, executed peak {float(executed):.4f} "
+          f"(bars {AL_PEND_BARS}); {loop_s:.2f} s for the loop; a period {period_ms:.3f} ms "
+          f"(median of {N_TIMED} replays, CUDA events), graph {stats.nodes} nodes (WHILE bodies "
+          f"{list(stats.body_nodes)}); host reads {ctrl.host_syncs} (torch sync-debug count "
+          f"{syncs_p} over the whole loop); launches "
+          f"{json.dumps(by_path['constrained_pendulum_loop'])}; on {card}", flush=True)
+    missed = [k for k, bar in AL_PEND_BARS.items() if not read[k] <= bar]
+    if missed or float(executed) > AL_PEND_U_MAX:
+        fail(f"constraints: the pendulum constrained MPC misses tests/test_constraints.py's bars: "
+             f"{missed}, executed peak {float(executed)}")
+    if ctrl.host_syncs or syncs_p:
+        fail(f"constraints: pendulum loop: {ctrl.host_syncs} host reads, {syncs_p} syncs")
+    # the first PEND_CPU_STEPS periods on CPU tensors
+    cpu_rec = closed_loop(MPCState(*(a.cpu() for a in st0)), lam0.cpu(), x_start.cpu(),
+                          goal_p.cpu(), PEND_CPU_STEPS, PEND_CPU_STEPS)[-1]
+    acc_ok = all(bool(g[1]) == bool(c[1]) for g, c in zip(rec, cpu_rec))
+    j_gap = max(abs(float(g[0]) - float(c[0])) / abs(float(c[0])) for g, c in zip(rec, cpu_rec))
+    x_gap = max(float((g[2].cpu() - c[2]).abs().max()) for g, c in zip(rec, cpu_rec))
+    print(f"constraints: pendulum constrained MPC, {PEND_CPU_STEPS} periods on CPU tensors: same "
+          f"accepts {acc_ok}, J gap {j_gap:.2e} (rtol {SOLVE_RTOL}), state gap {x_gap:.2e} (atol "
+          f"{PEND_X_ATOL})", flush=True)
+    if not acc_ok or j_gap > SOLVE_RTOL or x_gap > PEND_X_ATOL:
+        fail("constraints: the pendulum constrained MPC on the card and the CPU disagree")
+    print(f"constraints: phase took {time.perf_counter() - t_phase:.1f} s", flush=True)
+    caches = {"AL inner solver": al.solver.graphs, "AL batched solver": solve.solver.graphs,
+              "AL MPC period": ctrl.graphs}
+    return by_path, summary, caches
+
+
 def fig8_phase(torch, np, dev, card):
     """The figure-8 closed loop (benchmarks/fig8.py, device-loop mode) through
     the port on dev, with the launch counters; then FIG8_CPU_STEPS control
@@ -1722,6 +2054,65 @@ def batched_stages(torch, dev, solver, cfg, x, u, goals):
     return ms
 
 
+def hold_scenario(torch, np, label, solve, single, out, x0s, u0s, goals, b):
+    """Scenario b of a batched cold solve `out` (`solve`'s replay on x0s,
+    u0s and goals, a pytree with a leading B) against the same scenario
+    solved alone by `single`: the same iterations and alphas, final J
+    within SOLVE_RTOL, and the J trace within J_TRACE_FACTOR x the one-ulp
+    rounding envelope.  Returns (largest relative J gap, its share of the
+    envelope)."""
+    from torch.utils import _pytree as pytree
+
+    B = x0s.shape[0]
+    pick = lambda sl: pytree.tree_map(lambda v: v[sl], goals)
+    goal_b, x0, u0 = pick(b), x0s[b], u0s[b]
+    one = single(x0, u0, goal_b, initial_rollout=True)
+    it = int(one.iters)
+    ga, oa = out.alpha_trace[b, :it + 1].cpu(), one.alpha_trace[:it + 1].cpu()
+    gap = trace_gap(out.J_trace[b], one.J_trace, it)
+    # witnesses that tell rounding from a fault: (a) B copies of scenario b,
+    # each equal to the others and to scenario b of the mixed batch bit for
+    # bit (a scenario's result depends on its own inputs and B alone); (b)
+    # scenario b as a batch of 1, bit for bit the single graph (the batched
+    # body and its vmapped cost are the single solve's); (c) the rounding
+    # envelope: the single solve from controls moved by one ulp, against the
+    # single solve.  What is left between the batch and the single solve is
+    # what the glue's kernels round otherwise at another B, and it must stay
+    # inside the envelope
+    tile = lambda t: t[None].expand((B,) + t.shape).contiguous()
+    copies = solve(tile(x0), tile(u0), pytree.tree_map(tile, goal_b))
+    same = all(torch.equal(bits(t), bits(t[:1]).expand_as(bits(t)))
+               and torch.equal(bits(t[0]), bits(s[b]))
+               for t, s in zip(copies, out))
+    del copies
+    alone = solve(x0s[b:b + 1], u0s[b:b + 1], pick(slice(b, b + 1)))
+    alone_same = all(torch.equal(bits(t[0]), bits(s)) for t, s in zip(alone, one))
+    moved = single(x0, torch.nextafter(u0, torch.full_like(u0, float("inf"))), goal_b,
+                   initial_rollout=True)
+    env = trace_gap(moved.J_trace, one.J_trace, min(it, int(moved.iters)))
+    moved_part = first_difference(moved.alpha_trace, one.alpha_trace, it)
+    envelope = np.maximum(J_TRACE_FLOOR, np.maximum.accumulate(
+        np.pad(env, (0, len(gap) - len(env)), mode="edge")))
+    need = float(np.max(gap / envelope))
+    print(f"{label}: scenario {b}: {it} iterations; relative J-trace gap to the single solve at "
+          f"iterations {list(GAP_AT)}: mixed batch {at_iters(gap)}, one-ulp envelope "
+          f"{at_iters(env)} (its alphas part at iteration {moved_part}); the gap reaches "
+          f"{need:.3f} x the envelope's running largest (limit {J_TRACE_FACTOR:g}); alone as a "
+          f"batch of 1 {'equal to' if alone_same else 'DIFFERENT FROM'} the single graph bit for "
+          f"bit; {B} copies {'equal each other and the mixed batch' if same else 'DIFFER'} bit for "
+          f"bit", flush=True)
+    if not (same and alone_same):
+        fail(f"{label} scenario {b}: {B} copies equal each other and the mixed batch: {same}; "
+             f"alone as a batch of 1 equal to the single graph: {alone_same}")
+    iters = int(out.iters[b])
+    if iters != it or not torch.equal(ga, oa) or not np.isclose(
+            float(out.J[b]), float(one.J), rtol=SOLVE_RTOL, atol=0.0) or need > J_TRACE_FACTOR:
+        fail(f"{label} scenario {b} and its single solve disagree: iterations {iters} vs {it}, "
+             f"alphas {ga.tolist()} vs {oa.tolist()}, J {float(out.J[b])} vs {float(one.J)}, "
+             f"J-trace gap up to {need:.3f} x the envelope")
+    return float(gap.max()), need
+
+
 def batched_phase(torch, np, dev, cold, canon, fleet, kernels, card):
     """Scenario batching end to end: the batched solve (correctness at
     B = BATCH_CHECK, launches and throughput at every B of BATCH_SIZES), the
@@ -1758,54 +2149,8 @@ def batched_phase(torch, np, dev, cold, canon, fleet, kernels, card):
     if not (np.all(np.isfinite(J)) and np.all(J <= J0)):
         fail("batched solve: non-finite J or J above J0")
     single = make_ilqr_solver(prob.plant, prob.cost, cfg)
-    gaps, needs = [], []
-    for b in BATCH_SAMPLES:
-        goal_b = {k: v[b] for k, v in goals.items()}
-        one = single(cold.x, cold.u, goal_b, initial_rollout=True)
-        it = int(one.iters)
-        ga, oa = out.alpha_trace[b, :it + 1].cpu(), one.alpha_trace[:it + 1].cpu()
-        gap = trace_gap(out.J_trace[b], one.J_trace, it)
-        gaps.append(float(gap.max()))
-        # witnesses that tell rounding from a fault: (a) B copies of scenario
-        # b, each equal to the others and to scenario b of the mixed batch
-        # bit for bit (a scenario's result depends on its own inputs and B
-        # alone); (b) scenario b as a batch of 1, bit for bit the single
-        # graph (the batched body and its vmapped cost are the single
-        # solve's); (c) the rounding envelope: the single solve from controls
-        # moved by one ulp, against the single solve.  What is left between
-        # the batch and the single solve is what the glue's kernels round
-        # otherwise at another B, and it must stay inside the envelope
-        copies = solve(x0s, u0s, {k: tile(v, B) for k, v in goal_b.items()})
-        same = all(torch.equal(bits(t), bits(t[:1]).expand_as(bits(t)))
-                   and torch.equal(bits(t[0]), bits(s[b]))
-                   for t, s in zip(copies, out))
-        del copies
-        alone = solve(x0s[:1], u0s[:1], {k: v[b:b + 1] for k, v in goals.items()})
-        alone_same = all(torch.equal(bits(t[0]), bits(s)) for t, s in zip(alone, one))
-        moved = single(cold.x, torch.nextafter(cold.u, torch.full_like(cold.u, float("inf"))),
-                       goal_b, initial_rollout=True)
-        env = trace_gap(moved.J_trace, one.J_trace, min(it, int(moved.iters)))
-        moved_part = first_difference(moved.alpha_trace, one.alpha_trace, it)
-        envelope = np.maximum(J_TRACE_FLOOR, np.maximum.accumulate(
-            np.pad(env, (0, len(gap) - len(env)), mode="edge")))
-        needs.append(float(np.max(gap / envelope)))
-        print(f"batched: scenario {b}: {it} iterations; relative J-trace gap to the single solve "
-              f"at iterations {list(GAP_AT)}: mixed batch {at_iters(gap)}, one-ulp envelope "
-              f"{at_iters(env)} (its alphas part at iteration {moved_part}); the gap reaches "
-              f"{needs[-1]:.3f} x the envelope's running largest (limit {J_TRACE_FACTOR:g}); alone "
-              f"as a batch of 1 {'equal to' if alone_same else 'DIFFERENT FROM'} the single "
-              f"graph bit for bit; {B} copies "
-              f"{'equal each other and the mixed batch' if same else 'DIFFER'} bit for bit",
-              flush=True)
-        if not (same and alone_same):
-            fail(f"batched scenario {b}: {B} copies equal each other and the mixed batch: {same}; "
-                 f"alone as a batch of 1 equal to the single graph: {alone_same}")
-        if int(iters[b]) != it or not torch.equal(ga, oa) or not np.isclose(
-                float(out.J[b]), float(one.J), rtol=SOLVE_RTOL, atol=0.0) or \
-                needs[-1] > J_TRACE_FACTOR:
-            fail(f"batched scenario {b} and its single solve disagree: iterations {iters[b]} vs "
-                 f"{it}, alphas {ga.tolist()} vs {oa.tolist()}, J {float(out.J[b])} vs "
-                 f"{float(one.J)}, J-trace gap up to {needs[-1]:.3f} x the envelope")
+    gaps, needs = zip(*(hold_scenario(torch, np, "batched", solve, single, out, x0s, u0s, goals, b)
+                        for b in BATCH_SAMPLES))
     print(f"batched: scenarios {list(BATCH_SAMPLES)} equal their single solves (graph replays: "
           f"iterations, alphas, final J within rtol {SOLVE_RTOL}, J trace within "
           f"{J_TRACE_FACTOR:g} x the one-ulp envelope at every iteration; largest relative gap "
@@ -2006,11 +2351,12 @@ def main():
     solver, cold, goal, launches, canon = solve_phase(torch, np, dev)
     median_ms, warm_solve, per_solve = timing_phase(torch, np, dev, solver, cold, goal)
     plant_launches, plant_summary = plants_phase(torch, np, dev, card)
+    al_launches, al_summary, al_caches = constraints_phase(torch, np, dev, card)
     fig8_launches, control_step, runner, per_step, fig8_caches, fleet = fig8_phase(
         torch, np, dev, card)
     batched_launches, per_b, batched_caches = batched_phase(torch, np, dev, cold, canon, fleet,
                                                             kernels, card)
-    caches = {"WAFR solver": solver.graphs, **fig8_caches, **batched_caches}
+    caches = {"WAFR solver": solver.graphs, **al_caches, **fig8_caches, **batched_caches}
     chain = next(r for r in kernels if r["name"] == "sim_chain")
     chain["max_abs_err"] = max(chain["max_abs_err"], runner.pop("max_abs_err"))
     chain["ok"] = chain["ok"] and runner.pop("ok")
@@ -2038,7 +2384,7 @@ def main():
 
     # launches: the kernel's count on the path LAUNCHES_FROM names (the fig-8
     # closed loop where that runs it); launches_<path>: every path's own count
-    by_path = {"wafr_solve": launches, **plant_launches, **fig8_launches,
+    by_path = {"wafr_solve": launches, **plant_launches, **al_launches, **fig8_launches,
                "wafr_batched": batched_launches}
     line = {"kernels": [
         {k: r[k] for k in ("name", "route", "source", "replaces")}
@@ -2059,6 +2405,10 @@ def main():
         f"{name} {v['warm_ms']:.3f} ms a warm {N_ITERS}-iteration re-solve, iteration body "
         f"{v['body_nodes'][0]} nodes" for name, v in plant_summary.items()) + f" on {card}",
         flush=True)
+    print(f"constraints: inner-solve replay {al_summary['inner_ms']['cold']:.3f} ms cold, "
+          f"{al_summary['inner_ms']['warm']:.3f} ms warm; constrained batched B={AL_BATCH} "
+          f"{al_summary['batched_ms']:.3f} ms; AL MPC period {al_summary['period_ms']:.3f} ms "
+          f"(median) on {card}", flush=True)
     print("batched: " + "; ".join(f"B={B} {v['ms']:.3f} ms a {N_ITERS}-iteration batched solve, "
                                   f"{v['solves_per_s']:.0f} solves/s" for B, v in per_b.items())
           + f" on {card}", flush=True)

@@ -15,6 +15,8 @@ from parallel_ddp_tpu_torch.config import CostWeights, SolveOutput, SolverConfig
 from parallel_ddp_tpu_torch.models.base import Plant
 from parallel_ddp_tpu_torch.solver import ilqr_solve, make_ilqr_solver
 from parallel_ddp_tpu_torch.parallel.sharding import make_batched_solver
+from parallel_ddp_tpu_torch.constraints import (ALConfig, ALMPCController, BoxConstraints,
+                                                make_al_solver, solve_al)
 
 __all__ = [
     "SolverConfig",
@@ -24,4 +26,9 @@ __all__ = [
     "ilqr_solve",
     "make_ilqr_solver",
     "make_batched_solver",
+    "BoxConstraints",
+    "ALConfig",
+    "solve_al",
+    "make_al_solver",
+    "ALMPCController",
 ]

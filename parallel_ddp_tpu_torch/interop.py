@@ -15,6 +15,7 @@ import numpy as np
 import torch
 
 from parallel_ddp_tpu_torch.config import CostWeights, SolveOutput, SolverConfig
+from parallel_ddp_tpu_torch.constraints import BoxConstraints
 from parallel_ddp_tpu_torch.models import Plant, cartpole, pendulum, quadrotor
 from parallel_ddp_tpu_torch.models.kuka import soa
 from parallel_ddp_tpu_torch.models.kuka.model import KukaParams, kuka
@@ -39,13 +40,20 @@ def cost_weights(w) -> CostWeights:
 
 def goal(g, device=None):
     """The reference's goal, one scenario's or a batch's (a leading B on
-    every leaf): a goal dict ({"ee_goal", "x_target", ...}) as a dict of
+    every leaf): a goal dict ({"ee_goal", "x_target", ...}, or the AL goal
+    {"base": <goal>, "lam", "mu"}, dicts nested to any depth) as dicts of
     tensors; a bare array (the joint costs' target state, (n_state,)), a
     batch of them ((B, n_state), or a sequence of B arrays) as one tensor.
     Dtypes are kept (the reference's arrays are float32)."""
     if isinstance(g, dict):
-        return {k: tensor(v, device=device) for k, v in g.items()}
+        return {k: goal(v, device=device) for k, v in g.items()}
     return tensor(g, device=device)
+
+
+def box_constraints(con) -> BoxConstraints:
+    """The reference's `BoxConstraints` (numpy bounds, None where a side is
+    unbounded)."""
+    return BoxConstraints(con.n_state, con.n_ctrl, con.u_min, con.u_max, con.x_min, con.x_max)
 
 
 def warm_start(out, device=None) -> dict:

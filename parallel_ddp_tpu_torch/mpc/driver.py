@@ -251,15 +251,19 @@ class MPCController:
                     MPCStepInfo(*(None if a is None else a[0] for a in info)))
         return self._fleet_step(st, x_actual, t_now, goal, weights, iter_limit)
 
-    def _fleet_step(self, st: MPCState, x_actual, t_now, goal, weights, iter_limit,
-                    shared_goal: bool = False):
-        dt = self.cfg.dt
-        s_f = (t_now - st.t0) / dt
-        s = torch.floor(s_f).to(torch.int32)          # MPCHelpers.cuh:875
+    def shift_steps(self, t0, t_now) -> torch.Tensor:
+        """The warm start's shift, int32 on the device: the knots the plant
+        clock moved since t0, in [0, N-1], clamped by max_shift_steps."""
+        s = torch.floor((t_now - t0) / self.cfg.dt).to(torch.int32)   # MPCHelpers.cuh:875
         s = torch.clamp(s, 0, self.cfg.num_time_steps - 1)
         if self.mpc.max_shift_steps is not None:
             s = torch.clamp(s, max=self.mpc.max_shift_steps)
-        t0_new = st.t0 + s.to(torch.float32) * dt
+        return s
+
+    def _fleet_step(self, st: MPCState, x_actual, t_now, goal, weights, iter_limit,
+                    shared_goal: bool = False):
+        s = self.shift_steps(st.t0, t_now)
+        t0_new = st.t0 + s.to(torch.float32) * self.cfg.dt
 
         x_w, u_w, k_w, pm_w, pv_w, d_w = self._warm_start(st, x_actual, s)
 

@@ -742,3 +742,81 @@ def test_preset_graphed_solve_matches_eager(dev, name):
     assert cuda_riccati.riccati_cuda.counter.launches > 0
     if name.endswith("_fd"):
         assert cuda_rbd.kuka_qdd_cuda.counter.launches > 0
+
+
+# --- box constraints: the AL cost and the constrained MPC period
+
+@pytest.mark.parametrize("kind", ["pendulum", "kuka_ee"])
+def test_al_cost_on_the_card_matches_cpu(dev, kind):
+    """The AL cost's stage, gradient and Hessian on the card against the same
+    call on CPU tensors (lam mixing active and inactive rows): rtol 1e-5 of
+    each quantity's scale, the CPU tests' bound against the JAX package."""
+    from parallel_ddp_tpu_torch import presets
+    from parallel_ddp_tpu_torch.constraints import BoxConstraints, al_cost
+
+    rng = np.random.default_rng(4)
+    N = 16
+    if kind == "pendulum":
+        prob = presets.pendulum_swingup(num_time_steps=N, m_blocks=2, num_alpha=4)
+        con = BoxConstraints(n_state=2, n_ctrl=1, u_min=[-1.0], u_max=[1.0],
+                             x_min=[-0.5, -1.0], x_max=[0.5, 1.0])
+        base_goal = torch.tensor([np.pi, 0.0])
+        x, u = rng.normal(0, 1.0, (N, 2)), rng.normal(0, 2.0, (N, 1))
+    else:
+        prob = presets.kuka_ee(num_time_steps=N, m_blocks=2, num_alpha=4)
+        con = BoxConstraints(n_state=14, n_ctrl=7, u_min=[-40.0] * 7, u_max=[40.0] * 7)
+        base_goal = presets.ee_goal([0.3, -0.3, 0.9], device="cpu")
+        x, u = rng.normal(0, 1.0, (N, 14)), rng.normal(0, 40.0, (N, 7))
+    cost = al_cost(prob.cost, con, N - 1)
+    lam = np.abs(rng.normal(0, 5.0, (N, con.n_c))) * (rng.random((N, con.n_c)) < 0.5)
+    goal = {"base": base_goal, "lam": torch.as_tensor(lam, dtype=torch.float32),
+            "mu": torch.tensor(50.0)}
+    to = lambda g: {k: to(v) for k, v in g.items()} if isinstance(g, dict) else g.to(dev)
+    args = [torch.as_tensor(a, dtype=torch.float32) for a in (x, u)] + [torch.arange(N)]
+    cpu = (cost.stage(*args, goal, None),) + cost.quad(*args, goal, None)
+    gpu = (cost.stage(*[a.to(dev) for a in args], to(goal), None),) + cost.quad(
+        *[a.to(dev) for a in args], to(goal), None)
+    for g, c in zip(gpu, cpu):
+        torch.testing.assert_close(g.cpu(), c, rtol=1e-5, atol=1e-5 * float(c.abs().max()))
+
+
+def test_al_mpc_period_is_one_replay_with_no_host_read(dev):
+    """A constrained MPC period (tests/test_constraints.py's pendulum
+    controller, N = 48) replayed on the card: 0 host reads by the
+    controller's count and under torch's sync debug mode "error"; the same
+    body run eagerly on the card gives the same numbers; new lam and mu are
+    no new capture; the CPU takes the same accept decision, J within 1e-3."""
+    from parallel_ddp_tpu_torch import graphs, presets
+    from parallel_ddp_tpu_torch.constraints import ALMPCController, BoxConstraints
+    from parallel_ddp_tpu_torch.mpc.driver import MPCConfig, MPCState
+
+    prob = presets.pendulum_swingup(num_time_steps=48, total_time=2.0, m_blocks=2, num_alpha=8)
+    cfg = dataclasses.replace(prob.cfg, pallas_riccati=True)
+    con = BoxConstraints(n_state=2, n_ctrl=1, u_min=[-6.0], u_max=[6.0])
+    ctrl = ALMPCController(prob.plant, prob.cost, cfg, MPCConfig(max_iters_per_solve=6), con,
+                           mu=50.0)
+    goal_cpu = torch.tensor([np.pi, 0.0])
+    st_cpu, lam_cpu = ctrl.init_state(torch.zeros(2), goal=goal_cpu)
+    st, lam = MPCState(*(a.to(dev) for a in st_cpu)), lam_cpu.to(dev)
+    goal, x = goal_cpu.to(dev), torch.zeros(2, device=dev)
+    t = torch.full((), 0.02, device=dev)
+    st1, lam1, info = ctrl.step(st, lam, x, t, goal)             # the capture
+    assert ctrl.host_syncs == 0 and len(ctrl.graphs) == 1
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        again = ctrl.step(st, lam, x, t, goal)
+        other = ctrl.step(st1, lam1 + 0.5, x, t + 0.02, goal)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert ctrl.host_syncs == 0 and len(ctrl.graphs) == 1
+    assert not torch.equal(other[2].J, again[2].J)
+    with pytest.MonkeyPatch.context() as m:                      # the body, eagerly
+        m.setattr(graphs, "replayed", lambda device: False)
+        eager = ctrl.step(st, lam, x, t, goal)
+    for a, b in zip(tuple(again[0]) + (again[1],) + tuple(again[2]),
+                    tuple(eager[0]) + (eager[1],) + tuple(eager[2])):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
+    cpu = ctrl.step(st_cpu, lam_cpu, torch.zeros(2), 0.02, goal_cpu)
+    assert bool(info.accepted) == bool(cpu[2].accepted)
+    torch.testing.assert_close(info.J.cpu(), cpu[2].J, rtol=1e-3, atol=0)

@@ -48,7 +48,7 @@ def test_port_has_modules():
                      "mpc/controls.py", "mpc/driver.py", "mpc/device_loop.py",
                      "mpc/simulator.py", "ops/cuda_sim_chain.py", "device.py", "graphs.py",
                      "models/pendulum.py", "models/cartpole.py", "models/quadrotor.py",
-                     "costs/joint.py"):
+                     "costs/joint.py", "constraints.py"):
         assert expected in names
 
 
@@ -141,6 +141,8 @@ def _entry_points():
 
     import numpy as np
 
+    from parallel_ddp_tpu_torch.constraints import (ALConfig, ALMPCController, BoxConstraints,
+                                                    solve_al)
     from parallel_ddp_tpu_torch.mpc.driver import MPCConfig, MPCController
     from parallel_ddp_tpu_torch.mpc.simulator import PlantSimulator
     from parallel_ddp_tpu_torch.presets import ee_goal, kuka_ee
@@ -150,6 +152,8 @@ def _entry_points():
     cfg = dataclasses.replace(prob.cfg, pallas_riccati=True, max_iter=1)
     ctrl = MPCController(prob.plant, prob.cost, cfg, MPCConfig(max_iters_per_solve=1))
     solver = make_ilqr_solver(prob.plant, prob.cost, cfg)
+    con = BoxConstraints(n_state=14, n_ctrl=7, u_min=[-40.0] * 7, u_max=[40.0] * 7)
+    al_ctrl = ALMPCController(prob.plant, prob.cost, cfg, MPCConfig(max_iters_per_solve=1), con)
     x = np.zeros(14, np.float32)
     goal_kw = dict(xyz=[0.3, -0.3, 0.9])
     return {
@@ -160,10 +164,18 @@ def _entry_points():
             np.zeros((16, 14), np.float32), np.zeros((16, 7), np.float32),
             ee_goal(**goal_kw, **kw), initial_rollout=True, **kw).x,
         "plant_simulator": lambda **kw: PlantSimulator(prob.plant, **kw).device,
+        "solve_al": lambda **kw: solve_al(
+            prob.plant, prob.cost, cfg, np.zeros((16, 14), np.float32),
+            np.zeros((16, 7), np.float32), ee_goal(**goal_kw, **kw), con,
+            ALConfig(max_outer=1), **kw)[0].x,
+        "al_init_state": lambda **kw: al_ctrl.init_state(
+            x, goal=ee_goal(**goal_kw, **kw), warmup_iters=1, **kw)[0].x,
+        "al_zero_lam": lambda **kw: al_ctrl.zero_lam(**kw),
     }
 
 
-@pytest.mark.parametrize("name", ["ee_goal", "init_state", "solver", "plant_simulator"])
+@pytest.mark.parametrize("name", ["ee_goal", "init_state", "solver", "plant_simulator",
+                                  "solve_al", "al_init_state", "al_zero_lam"])
 def test_entry_points_default_to_the_card(name):
     """Given lists or numpy arrays and no `device`, an entry point builds on
     the card, or raises where there is none: it never falls back to the CPU.
