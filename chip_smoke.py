@@ -21,13 +21,17 @@ Phases (each prints one line; any failure exits non-zero):
                T = 15 RK3; the Riccati sweep at the Kuka's sizes, on blocks of
                96 steps, longer than its ring of staged steps, and at n = 4,
                m = 2, the run-time-size body, and at every shape a path of
-               the plants and constraints phases gives it, from the configs
-               those phases solve with: (n, m) = (2, 1), (4, 1), (12, 4)
-               over 4 lanes of 32 steps, (14, 7) and (12, 4) over 4 lanes of
-               16, (2, 1) over 2 lanes of 16 and over 2 lanes of 24, each
-               timed beside its bound); the Kuka kernels
+               the plants, urdf and constraints phases gives it, from the
+               configs those phases solve with: (n, m) = (2, 1), (4, 1),
+               (12, 4) over 4 lanes of 32 steps, (14, 7) and (12, 4) over 4
+               lanes of 16, (2, 1) over 2 lanes of 16 and over 2 lanes of
+               24, each timed beside its bound); the Kuka kernels
                also at gravity 9.81 (kuka_joint's) and
                the forward dynamics at kuka_joint's FD batch of 2,646 samples;
+               the RBD-Jacobian kernel (Jacobian and qdd, gravity 0 and 9.81)
+               and the forward-dynamics kernel also against the independent
+               spatial-algebra core (`models/kuka/rbd.py` KukaRBD) on the
+               card, at the JAX package's bounds for its two cores;
                the wrappers' host cost per enqueue apart from the kernels' own
                time (CUDA-graph replay).
   4. solve   — the WAFR Kuka iiwa-14 end-effector solve (N=64, 4+4 blocks,
@@ -61,6 +65,18 @@ Phases (each prints one line; any failure exits non-zero):
                the start by one or two ulps makes on the CPU); the
                pendulum's device closed loop of
                tests/test_mpc.py (30 control steps, 3 on CPU tensors).
+  5b'. urdf — the URDF front end (`parallel_ddp_tpu_torch/models/urdf.py`):
+               the packaged iiwa14.urdf parsed and held to the Kuka
+               constants at tests/test_urdf.py's bounds; its spatial-algebra
+               core's qdd and vmapped-jacfwd Euler AB on the card against the
+               same calls on CPU tensors (63 samples); the WAFR-shape URDF
+               solve (N = 64, 4 + 4 blocks, 16 alphas, Euler, gravity 0, the
+               EE cost, the "auto" = spatial-algebra core, the fused Riccati
+               sweep its one kernel) from the goldens' seeded start, cold as
+               one replay (launches counted, 0 host reads) against the CPU's
+               solve by the plants phase's rule, then a warm 6-iteration
+               re-solve timed (median of 20) with its graph's nodes and
+               capture seconds, beside the kernel-backed Kuka's.
   5c. constraints — box constraints (`parallel_ddp_tpu_torch/
                constraints.py`) at the WAFR width, each path with its own
                launch counts: the torque-limited WAFR Kuka EE solve of
@@ -307,6 +323,21 @@ AL_PEND_SUBSTEPS = 2
 AL_PEND_SIM_DT = 0.01
 AL_PEND_BARS = dict(q_err=0.05, qd=0.1, head=AL_PEND_U_MAX * 1.05, tail=AL_PEND_U_MAX * 1.25,
                     plan=AL_PEND_U_MAX + 1e-2)
+# urdf phase: the packaged iiwa-14 URDF (parallel_ddp_tpu_torch/models/data)
+# at the WAFR shape (N = 64 over 0.5 s, 4 + 4 blocks, 16 alphas, Euler,
+# gravity-compensated) on urdf_plant's "auto" core, the spatial-algebra one,
+# from the goldens' seeded start (tests/test_torch_golden.py run_case, seed
+# 0) toward their goal; its dynamics, AB and cost are PyTorch ops in the
+# graph, the fused Riccati sweep its one kernel.  The core on the card
+# against the same core on CPU tensors at the derivative stage's 63 samples.
+URDF_GOAL = [0.3, -0.5, 0.4]
+URDF_SAMPLES = 63
+URDF_MAX_DEFECT = 0.1          # tests/test_urdf.py's bar for a URDF arm's solve
+# the kernels against the independent spatial-algebra core (KukaRBD) on the
+# card: |kernel - rbd| <= rtol |rbd| + atol, the JAX package's own bounds of
+# its scalar-channel core against that core (tests/test_soa.py:35 for qdd,
+# :84 for its Jacobian)
+RBD_TOL = {"qdd": (2e-4, 2e-2), "rbd_jac": (5e-3, 0.5)}
 # the paths driven, each with the launch counters zeroed just before it and
 # read just after, and the kernels each must launch
 PATH_KERNELS = {
@@ -321,6 +352,7 @@ PATH_KERNELS = {
     "plants_kuka_joint": ("rbd_jac", "rollout", "riccati", "sim_chain"),
     "plants_kuka_joint_fd": ("rollout", "riccati", "qdd", "sim_chain"),
     "plants_pendulum_loop": ("riccati",),
+    "urdf_iiwa14": ("riccati",),
     "constrained_wafr": ("rbd_jac", "rollout", "riccati", "sim_chain"),
     "constrained_batched": ("rbd_jac", "rollout", "riccati", "sim_chain"),
     "constrained_pendulum_loop": ("riccati",),
@@ -551,6 +583,24 @@ def compare(name, got, ref):
     return err, ok
 
 
+def against_rbd(name, got, ref):
+    """Max abs error of a kernel's output against the spatial-algebra core's,
+    and whether it is within RBD_TOL[name] (an absolute atol)."""
+    rtol, atol = RBD_TOL[name]
+    g, r = got.double(), ref.double()
+    diff = (g - r).abs()
+    return float(diff.max()), bool(g.isfinite().all() and (diff <= rtol * r.abs() + atol).all())
+
+
+def rbd_jac_and_qdd(torch, core, x, u):
+    """The spatial-algebra core's d qdd / d (x, u) (B, 7, 21) by vmapped
+    jacfwd, and its qdd (B, 7)."""
+    def one(xi, ui):
+        dx, du = torch.func.jacfwd(core.forward_dynamics, argnums=(0, 1))(xi, ui)
+        return torch.cat([dx, du], dim=-1)
+    return torch.func.vmap(one)(x, u), core.forward_dynamics(x, u)
+
+
 def bits(t):
     """t's bits (a float tensor viewed as integers: NaN equals NaN)."""
     import torch
@@ -580,6 +630,7 @@ def at_iters(gap):
 def kernel_phase(torch, np, dev):
     """Each kernel vs its plain version at the main path's shapes."""
     from parallel_ddp_tpu_torch.config import SolverConfig
+    from parallel_ddp_tpu_torch.models.kuka.rbd import KukaRBD
     from parallel_ddp_tpu_torch.ops import cuda_rbd, cuda_riccati, cuda_rollout, cuda_sim_chain
 
     rng = np.random.default_rng(0)
@@ -611,6 +662,20 @@ def kernel_phase(torch, np, dev):
     print(f"kernels: rbd_jac at gravity {GRAVITY}: max_abs_err {g_err:.3e}, Euler AB "
           f"{e:.3e} ({'ok' if g_ok and o else 'OUT OF TOLERANCE'})", flush=True)
     err, ok = max(err, g_err, e), ok and g_ok and o
+    # the independent spatial-algebra core (KukaRBD) on the card, at both
+    # gravities: the kernel's Jacobian and its primal qdd
+    core_err, core_ok = 0.0, True
+    for grav in (0.0, GRAVITY):
+        jac_r, qdd_r = rbd_jac_and_qdd(torch, KukaRBD(1, grav), x, u)
+        jac_k, qdd_k = cuda_rbd.kuka_jac_qdd_cuda(x, u, 1, grav)
+        (ej, oj), (eq, oq) = against_rbd("rbd_jac", jac_k, jac_r), against_rbd("qdd", qdd_k, qdd_r)
+        print(f"kernels: rbd_jac against the spatial-algebra core (KukaRBD), gravity {grav}: "
+              f"Jacobian max_abs_err {ej:.3e} (rtol {RBD_TOL['rbd_jac'][0]:g}, atol "
+              f"{RBD_TOL['rbd_jac'][1]:g}), qdd {eq:.3e} (rtol {RBD_TOL['qdd'][0]:g}, atol "
+              f"{RBD_TOL['qdd'][1]:g}) ({'ok' if oj and oq else 'OUT OF TOLERANCE'}); against "
+              f"its plain version {err:.3e}", flush=True)
+        core_err, core_ok = max(core_err, ej, eq), core_ok and oj and oq
+    ok = ok and core_ok
     host_us, kernel_us = host_and_kernel_us(lambda: cuda_rbd.kuka_jac_qdd_cuda(x, u, 1, 0.0), 1000)
     ab_host_us, ab_kernel_us = host_and_kernel_us(lambda: ab_call(x, u), 1000)
     ab_ms = cuda_ms(lambda: ab_call(x, u), 50)
@@ -622,7 +687,7 @@ def kernel_phase(torch, np, dev):
     results.append(dict(
         name="rbd_jac", route="cuda", source="parallel_ddp_tpu_torch/csrc/rbd_jac.cu",
         replaces="parallel_ddp_tpu/ops/pallas_rbd.py:48", max_abs_err=max(err, ab_err),
-        ok=ok and ab_ok, host_us=host_us, kernel_us=kernel_us, ms_euler_ab=ab_ms,
+        max_abs_err_rbd_core=core_err, ok=ok and ab_ok, host_us=host_us, kernel_us=kernel_us, ms_euler_ab=ab_ms,
         host_us_euler_ab=ab_host_us, kernel_us_euler_ab=ab_kernel_us,
         ms=cuda_ms(lambda: cuda_rbd.kuka_jac_qdd_cuda(x, u, 1, 0.0), 50),
         plain_ms=cuda_ms(lambda: cuda_rbd.kuka_jac_qdd_plain(x, u, 1, 0.0), 5),
@@ -692,18 +757,18 @@ def kernel_phase(torch, np, dev):
         return rho, seeds_P, seeds_p, AB, H, g, d, k_blk
 
     ric_err, ric_ok, ric_plants = 0.0, True, {}
-    cases = [("n=14 m=7, 4 lanes x 16 steps, all staged", synth(N), nx, nu, None),
-             ("n=14 m=7, 2 lanes x 96 steps, ring refilled", synth(192, 2), nx, nu, None),
-             ("n=4 m=2, run-time sizes", synth(16), 4, 2, None)]
+    cases = [("n=14 m=7, 4 lanes x 16 steps, all staged", synth(N), nx, nu, ()),
+             ("n=14 m=7, 2 lanes x 96 steps, ring refilled", synth(192, 2), nx, nu, ()),
+             ("n=4 m=2, run-time sizes", synth(16), 4, 2, ())]
     paths = {}                # a plants- or constraints-phase shape -> the paths that run it
     for path, (prob, cfg) in {**plant_problems(np), **constrained_problems(np)}.items():
         n_x, n_u = prob.plant.n_state, prob.plant.n_ctrl
         key = (cfg.num_time_steps, cfg.m_blocks_b, cfg.m_blocks_f, cfg.state_reg, n_x, n_u)
         paths.setdefault(key, (cfg, []))[1].append(path)
     cases += [(f"n={n_x} m={n_u}, {cfg.m_blocks_b} lanes x {cfg.n_blocks_b} steps "
-               f"({' / '.join(names)})", cfg, n_x, n_u, names[0])
+               f"({' / '.join(names)})", cfg, n_x, n_u, names)
               for (*_, n_x, n_u), (cfg, names) in paths.items()]
-    for label, cfg, n_x, n_u, plant in cases:
+    for label, cfg, n_x, n_u, names in cases:
         args = riccati_case(cfg, n_x, n_u)
         lanes = cfg.m_blocks_b
         bp = cuda_riccati.make_riccati_block_call(cfg, n_x, n_u)
@@ -713,20 +778,20 @@ def kernel_phase(torch, np, dev):
             fail(f"riccati {label}: synthetic SPD inputs reported a Cholesky failure")
         e, o = compare("riccati", got[:7], [r.to(dev) for r in ref[:7]])
         timing = ""
-        if plant is not None:
-            # a plant's shape: its time, apart from the wrapper's host cost,
-            # beside its bound (the plants phase counts its launches)
+        if names:
+            # a path's shape: its time, apart from the wrapper's host cost,
+            # beside its bound, under each path's name (the plants and urdf
+            # phases count its launches)
             step = cuda_riccati.make_riccati_step(cfg, n_x, n_u)
             plain = lambda: cuda_riccati.run_block(step, args[0].expand(lanes), *args[1:])
             host_us, kernel_us = host_and_kernel_us(lambda: bp(*args), 200)
             bound = roofline(args, got, count_ops(plain))
-            ric_plants.update({f"ms_{plant}": cuda_ms(lambda: bp(*args), 50),
-                               f"plain_ms_{plant}": cuda_ms(plain, 2),
-                               f"host_us_{plant}": host_us, f"kernel_us_{plant}": kernel_us,
-                               f"bound_ms_{plant}": bound["bound_ms"],
-                               f"bound_by_{plant}": bound["bound_by"], f"max_abs_err_{plant}": e})
-            timing = (f"; {ric_plants[f'ms_{plant}']:.4f} ms vs plain "
-                      f"{ric_plants[f'plain_ms_{plant}']:.3f} ms; host {host_us:.2f} us per "
+            measured = dict(ms=cuda_ms(lambda: bp(*args), 50), plain_ms=cuda_ms(plain, 2),
+                            host_us=host_us, kernel_us=kernel_us, bound_ms=bound["bound_ms"],
+                            bound_by=bound["bound_by"], max_abs_err=e)
+            ric_plants.update({f"{k}_{path}": v for path in names for k, v in measured.items()})
+            timing = (f"; {measured['ms']:.4f} ms vs plain "
+                      f"{measured['plain_ms']:.3f} ms; host {host_us:.2f} us per "
                       f"enqueue, kernel alone {kernel_us:.2f} us (CUDA-graph replay); bound "
                       f"{bound['bound_ms']:.3e} ms by {bound['bound_by']}")
         print(f"kernels: riccati {label}: max_abs_err {e:.3e} "
@@ -764,19 +829,24 @@ def kernel_phase(torch, np, dev):
     # -- forward dynamics: one sample (every plant / warm-start step of the
     #    closed loop) and the batched dynamics benchmark's 8192
     qdd = dict(name="qdd", route="cuda", source="parallel_ddp_tpu_torch/csrc/qdd.cu",
-               replaces="parallel_ddp_tpu/ops/pallas_rbd.py:39", max_abs_err=0.0, ok=True)
+               replaces="parallel_ddp_tpu/ops/pallas_rbd.py:39", max_abs_err=0.0,
+               max_abs_err_rbd_core=0.0, ok=True)
     for B, grav in [(b, 0.0) for b in QDD_BATCHES] + [(QDD_FD_BATCH, GRAVITY)]:
         x = f32(rng.normal(0, 0.5, (B, nx)))
         u = f32(rng.normal(0, 2.0, (B, nu)))
         got = cuda_rbd.kuka_qdd_cuda(x, u, 1, grav)
         err, ok = compare("qdd", [got], [cuda_rbd.kuka_qdd_plain(x, u, 1, grav)])
+        # and against the independent spatial-algebra core on the card
+        core_err, core_ok = against_rbd("qdd", got, KukaRBD(1, grav).forward_dynamics(x, u))
         ms = cuda_ms(lambda: cuda_rbd.kuka_qdd_cuda(x, u, 1, grav), 200)
         plain_ms = cuda_ms(lambda: cuda_rbd.kuka_qdd_plain(x, u, 1, grav), 10)
-        print(f"kernels: qdd B={B}, gravity {grav}: max_abs_err {err:.3e} "
-              f"({'ok' if ok else 'OUT OF TOLERANCE'}); {ms:.4f} ms vs plain {plain_ms:.3f} ms",
-              flush=True)
+        print(f"kernels: qdd B={B}, gravity {grav}: max_abs_err {err:.3e}, against the "
+              f"spatial-algebra core (KukaRBD) {core_err:.3e} (rtol {RBD_TOL['qdd'][0]:g}, atol "
+              f"{RBD_TOL['qdd'][1]:g}) ({'ok' if ok and core_ok else 'OUT OF TOLERANCE'}); "
+              f"{ms:.4f} ms vs plain {plain_ms:.3f} ms", flush=True)
         qdd["max_abs_err"] = max(qdd["max_abs_err"], err)
-        qdd["ok"] = qdd["ok"] and ok
+        qdd["max_abs_err_rbd_core"] = max(qdd["max_abs_err_rbd_core"], core_err)
+        qdd["ok"] = qdd["ok"] and ok and core_ok
         if B == QDD_BATCHES[0]:
             qdd["ms"], qdd["plain_ms"] = ms, plain_ms
             qdd.update(roofline((x, u), [got], count_ops(
@@ -1018,12 +1088,13 @@ def plant_cases(np):
 
 
 def plant_problems(np):
-    """Every problem the plants phase solves, with its solver config (the
-    fused Riccati sweep on), by path: the four presets at full size (their
-    warm re-solves and kuka_joint's FD solve run the same shapes), the
-    quadrotor at the JAX test's N = 64 over 2 s (tests/test_solver.py:86-101)
-    and the pendulum's MPC loop, N = 32 over 1 s (tests/test_mpc.py:116-135).
-    The kernel phase holds the Riccati kernel at each of their shapes."""
+    """Every problem the plants and urdf phases solve, with its solver config
+    (the fused Riccati sweep on), by path: the four presets at full size
+    (their warm re-solves and kuka_joint's FD solve run the same shapes), the
+    quadrotor at the JAX test's N = 64 over 2 s (tests/test_solver.py:86-101),
+    the pendulum's MPC loop, N = 32 over 1 s (tests/test_mpc.py:116-135), and
+    the URDF iiwa-14 at the WAFR shape.  The kernel phase holds the Riccati
+    kernel at each of their shapes."""
     from parallel_ddp_tpu_torch import presets
 
     out = {}
@@ -1035,7 +1106,19 @@ def plant_problems(np):
                                                       max_iter=out["quadrotor"][1].max_iter))
     prob = presets.pendulum_swingup(num_time_steps=32, total_time=1.0, m_blocks=2, num_alpha=8)
     out["pendulum_loop"] = (prob, dataclasses.replace(prob.cfg, pallas_riccati=True))
+    out["urdf_iiwa14"] = urdf_wafr_problem()
     return out
+
+
+def urdf_wafr_problem():
+    """The urdf phase's problem: the packaged iiwa-14 URDF at the WAFR shape
+    with the EE cost (URDF_GOAL's problem), the fused Riccati sweep on."""
+    from parallel_ddp_tpu_torch import presets
+    from parallel_ddp_tpu_torch.models.urdf import IIWA14_URDF
+
+    prob = presets.urdf_problem(IIWA14_URDF, ee=True, gravity=0.0, num_time_steps=64,
+                                total_time=0.5, m_blocks=4, num_alpha=16, integrator=1)
+    return prob, dataclasses.replace(prob.cfg, pallas_riccati=True)
 
 
 def convergence(np, name, out, goal, test_size=True):
@@ -1212,6 +1295,51 @@ def hold_fd_ab(np, prob, cfg, xs, us, dev):
         fail(f"plants kuka_joint: FD AB out of its bounds or {launches} qdd launches")
 
 
+def on(torch, a, dev):
+    """a (an array, or a dict of them: an EE goal) as tensors on dev."""
+    if isinstance(a, dict):
+        return {k: on(torch, v, dev) for k, v in a.items()}
+    return torch.as_tensor(a, device=dev)
+
+
+def replay(torch, path, solver, args, by_path, **kw):
+    """One solve on the card (the capture first), replayed with the launch
+    counters zeroed just before and read just after into by_path[path]; 0
+    host reads."""
+    solver(*args, **kw)
+    torch.cuda.synchronize()
+    reset_counts()
+    out, syncs = count_syncs(torch, lambda: solver(*args, **kw))
+    torch.cuda.synchronize()
+    by_path[path] = read_counts()
+    require_launched(path, by_path[path])
+    if solver.host_syncs or syncs:
+        fail(f"{path}: the replayed solve read the host ({solver.host_syncs} reads, torch "
+             f"sync-debug count {syncs})")
+    return out
+
+
+def solve_pair(torch, dev, phase, path, prob, cfg, x0, u0, goal, by_path, cpu_iters=None):
+    """One cold solve replayed on the card and the same solve on CPU tensors
+    (capped at cpu_iters iterations if given); the card's solver is returned
+    too (its graphs)."""
+    from parallel_ddp_tpu_torch.solver import make_ilqr_solver
+
+    args = [on(torch, a, dev) for a in (x0, u0, goal)]
+    t0 = time.perf_counter()
+    solver = make_ilqr_solver(prob.plant, prob.cost, cfg)
+    gpu = replay(torch, path, solver, args, by_path, initial_rollout=True)
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cpu = make_ilqr_solver(prob.plant, prob.cost, cfg)(
+        *(on(torch, a, "cpu") for a in (x0, u0, goal)), initial_rollout=True,
+        iter_limit=cpu_iters)
+    print(f"{phase}: {path}: cold solve captured and replayed in {card_s:.1f} s with 0 host "
+          f"reads; launches {json.dumps(by_path[path])}; CPU solve "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return gpu, cpu, solver
+
+
 def plants_phase(torch, np, dev, card):
     """The WAFR example's pendulum, cart-pole, quadrotor and joint-space Kuka
     at their presets' full sizes with the fused Riccati sweep: each cold
@@ -1227,37 +1355,6 @@ def plants_phase(torch, np, dev, card):
     by_path, summary = {}, {}
     problems = plant_problems(np)
 
-    def replay(path, solver, args, **kw):
-        """One solve on the card (the capture first), replayed with the
-        launch counters zeroed just before and read just after; 0 host reads."""
-        solver(*args, **kw)
-        torch.cuda.synchronize()
-        reset_counts()
-        out, syncs = count_syncs(torch, lambda: solver(*args, **kw))
-        torch.cuda.synchronize()
-        by_path[path] = read_counts()
-        require_launched(path, by_path[path])
-        if solver.host_syncs or syncs:
-            fail(f"{path}: the replayed solve read the host ({solver.host_syncs} reads, torch "
-                 f"sync-debug count {syncs})")
-        return out
-
-    def solve_pair(path, prob, cfg, x0, u0, goal, cpu_iters=None):
-        """One cold solve replayed on the card and the same solve on CPU
-        tensors (capped at cpu_iters iterations if given)."""
-        args = [torch.as_tensor(a, device=dev) for a in (x0, u0, goal)]
-        t0 = time.perf_counter()
-        gpu = replay(path, make_ilqr_solver(prob.plant, prob.cost, cfg), args,
-                     initial_rollout=True)
-        card_s = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        cpu = make_ilqr_solver(prob.plant, prob.cost, cfg)(
-            *(a.cpu() for a in args), initial_rollout=True, iter_limit=cpu_iters)
-        print(f"plants: {path}: cold solve captured and replayed in {card_s:.1f} s with 0 host "
-              f"reads; launches {json.dumps(by_path[path])}; CPU solve "
-              f"{time.perf_counter() - t0:.1f} s", flush=True)
-        return gpu, cpu
-
     for name, (_, x_start, u_start, goal, _) in plant_cases(np).items():
         prob, cfg = problems[name]
         N = cfg.num_time_steps
@@ -1265,7 +1362,8 @@ def plants_phase(torch, np, dev, card):
         u0 = np.tile(np.asarray(u_start, np.float32), (N, 1))
         goal = np.asarray(goal, np.float32)
         cap = PLANT_CPU_ITERS.get(name)
-        gpu, cpu = solve_pair(f"plants_{name}", prob, cfg, x0, u0, goal, cap)
+        gpu, cpu, _ = solve_pair(torch, dev, "plants", f"plants_{name}", prob, cfg, x0, u0, goal,
+                                 by_path, cap)
         print(f"plants: {name}: {hold_to_cpu(np, name, gpu, cpu, cap)}", flush=True)
         for side, out in (("card", gpu),) + ((("CPU", cpu),) if cap is None else ()):
             read, bad = convergence(np, name, out, goal, name != "quadrotor")
@@ -1275,9 +1373,9 @@ def plants_phase(torch, np, dev, card):
         if name == "quadrotor":
             prob_t, cfg_t = problems["quadrotor_n64"]
             test_args = [torch.as_tensor(a, device=dev) for a in (x0[:64], u0[:64], goal)]
-            out_t = replay("plants_quadrotor_n64", make_ilqr_solver(prob_t.plant, prob_t.cost,
-                                                                    cfg_t),
-                           test_args, initial_rollout=True)
+            out_t = replay(torch, "plants_quadrotor_n64",
+                           make_ilqr_solver(prob_t.plant, prob_t.cost, cfg_t), test_args, by_path,
+                           initial_rollout=True)
             read, bad = convergence(np, name, out_t, goal)
             print(f"plants: quadrotor at the JAX test's N = 64 over 2 s: card: {read}; launches "
                   f"{json.dumps(by_path['plants_quadrotor_n64'])}", flush=True)
@@ -1312,7 +1410,8 @@ def plants_phase(torch, np, dev, card):
             # FD solve card vs CPU, beside the CPU's from moved starts
             hold_fd_ab(np, prob, cfg, gpu.x[:-1].contiguous(), gpu.u[:-1].contiguous(), dev)
             fd_cfg = dataclasses.replace(cfg, use_finite_diff=True)
-            fd_gpu, fd_cpu = solve_pair("plants_kuka_joint_fd", prob, fd_cfg, x0, u0, goal, cap)
+            fd_gpu, fd_cpu, _ = solve_pair(torch, dev, "plants", "plants_kuka_joint_fd", prob,
+                                           fd_cfg, x0, u0, goal, by_path, cap)
             cpu_fd = make_ilqr_solver(prob.plant, prob.cost, fd_cfg)
             moved = []
             for k in ULP_MOVES:
@@ -1362,6 +1461,123 @@ def plants_phase(torch, np, dev, card):
         fail("plants: the pendulum device loop on the card and the CPU disagree")
     print(f"plants: phase took {time.perf_counter() - t_phase:.1f} s", flush=True)
     return by_path, summary
+
+
+def urdf_phase(torch, np, dev, card, kuka_warm_ms):
+    """The URDF front end and the spatial-algebra core on the card: the
+    packaged iiwa-14 parsed and held to the Kuka constants; the core's
+    dynamics and AB on the card against CPU tensors; the WAFR-shape URDF
+    solve cold (one replay, launches counted, 0 host reads) against the CPU's
+    by the plants phase's rule, then the warm 6-iteration re-solve timed
+    beside the kernel-backed Kuka's (kuka_warm_ms)."""
+    from parallel_ddp_tpu_torch.models.kuka import params as kp
+    from parallel_ddp_tpu_torch.models.urdf import IIWA14_URDF, load_urdf
+    from parallel_ddp_tpu_torch.ops.integrators import make_step_jacobian
+    from parallel_ddp_tpu_torch.presets import ee_goal
+    from parallel_ddp_tpu_torch.solver import make_ilqr_solver
+
+    t_phase = time.perf_counter()
+    # 1. the parser against the hardcoded constants, at tests/test_urdf.py's
+    #    bounds (:129-158): link 7's baked inertia is rounded by 2e-5 there
+    arm = load_urdf(IIWA14_URDF)
+    r_t, p_t, i_sp, _, _ = kp.build_constants(ee_type=0)
+    diffs = dict(r_tree=np.abs(arm.r_tree - r_t).max(), p_tree=np.abs(arm.p_tree - p_t).max(),
+                 i_spatial_1_6=np.abs(arm.i_spatial[:6] - i_sp[:6]).max(),
+                 i_spatial_7=np.abs(arm.i_spatial[6] - i_sp[6]).max())
+    bars = dict(r_tree=1e-7, p_tree=0.0, i_spatial_1_6=0.0, i_spatial_7=3e-5)
+    limits_ok = (abs(arm.pos_upper[1] - 2.09439510239) <= 1e-9 * 2.09439510239
+                 and float(arm.effort_limit[0]) == 300.0)
+    print(f"urdf: parsed {IIWA14_URDF.split(os.sep)[-1]}: {arm.n} joints "
+          f"{''.join(arm.joint_types)}; max |URDF - build_constants(ee_type=0)| "
+          + ", ".join(f"{k} {v:.3e} (bar {bars[k]:g})" for k, v in diffs.items())
+          + f"; limits {'ok' if limits_ok else 'WRONG'}", flush=True)
+    if any(diffs[k] > bars[k] for k in bars) or arm.n != 7 or not limits_ok:
+        fail("urdf: the parsed iiwa-14 differs from the Kuka constants")
+
+    # 2. the core on the card against the same core on CPU tensors, at the
+    #    derivative stage's samples: qdd, and the Euler step's AB by vmapped
+    #    jacfwd (what the solve's derivative stage runs)
+    prob, cfg = urdf_wafr_problem()
+    rng = np.random.default_rng(0)
+    x = torch.as_tensor(rng.normal(0, 0.5, (URDF_SAMPLES, 14)).astype(np.float32), device=dev)
+    u = torch.as_tensor(rng.normal(0, 2.0, (URDF_SAMPLES, 7)).astype(np.float32), device=dev)
+    core_ok = True
+    for grav in (0.0, GRAVITY):
+        core = arm.rbd(gravity=grav)
+        qdd = core.forward_dynamics(x, u)
+        e_q, o_q = compare("qdd", [qdd], [core.forward_dynamics(x.cpu(), u.cpu()).to(dev)])
+        ab_fn = torch.func.vmap(make_step_jacobian(
+            dataclasses.replace(prob.plant, dynamics=core.forward_dynamics), 1, cfg.dt))
+        ab = ab_fn(x, u)
+        e_ab, o_ab = compare("rbd_jac", [ab], [ab_fn(x.cpu(), u.cpu()).to(dev)])
+        ms_q, ms_ab = cuda_ms(lambda: core.forward_dynamics(x, u), 20), cuda_ms(
+            lambda: ab_fn(x, u), 10)
+        print(f"urdf: spatial-algebra core, gravity {grav}, {URDF_SAMPLES} samples, card vs CPU "
+              f"tensors: qdd max_abs_err {e_q:.3e}, Euler AB {e_ab:.3e} (the qdd and rbd_jac "
+              f"tolerances: {'ok' if o_q and o_ab else 'OUT OF TOLERANCE'}); eager on the card "
+              f"{ms_q:.3f} ms a qdd call, {ms_ab:.3f} ms an AB call ({ab.dtype}) on {card}",
+              flush=True)
+        core_ok = core_ok and o_q and o_ab and ab.dtype == torch.float32
+    if not core_ok:
+        fail("urdf: the spatial-algebra core on the card disagrees with the CPU")
+
+    # 3. the solve: cold from the goldens' seeded start, one replay, against
+    #    the same solve on CPU tensors by the plants phase's rule
+    by_path = {}
+    N = cfg.num_time_steps
+    x_start = (np.random.default_rng(0).standard_normal(14) * 0.3).astype(np.float32)
+    x0 = np.broadcast_to(x_start, (N, 14)).copy()
+    u0 = np.zeros((N, 7), np.float32)
+    goal = {k: v.numpy() for k, v in ee_goal(URDF_GOAL, device="cpu").items()}
+    gpu, cpu, solver = solve_pair(torch, dev, "urdf", "urdf_iiwa14", prob, cfg, x0, u0, goal,
+                                  by_path)
+    cold = solver.graphs.stats()[-1]
+    print(f"urdf: urdf_iiwa14: {hold_to_cpu(np, 'urdf_iiwa14', gpu, cpu)}", flush=True)
+    ee_err = lambda out: float(np.linalg.norm(
+        prob.plant.ee_pos(out.x[-1, :7]).cpu().numpy()[:3] - np.asarray(URDF_GOAL)))
+    start_err = float(np.linalg.norm(prob.plant.ee_pos(torch.as_tensor(x_start[:7])).numpy()[:3]
+                                     - np.asarray(URDF_GOAL)))
+    it = int(gpu.iters)
+    jt = gpu.J_trace.cpu().numpy()[: it + 1]
+    print(f"urdf: cold solve on the card: J {jt[0]:.4f} -> {float(gpu.J):.4f} in {it} iterations, "
+          f"max_defect {float(gpu.max_defect):.3e}, EE error to the goal {ee_err(gpu):.4f} m "
+          f"(start {start_err:.4f} m; CPU {ee_err(cpu):.4f} m); graph captured and instantiated "
+          f"in {cold.seconds:.2f} s, {cold.nodes} nodes, WHILE bodies {list(cold.body_nodes)}",
+          flush=True)
+    if not (np.all(np.isfinite(jt)) and float(gpu.J) < jt[0]
+            and float(gpu.max_defect) < URDF_MAX_DEFECT and ee_err(gpu) < start_err):
+        fail("urdf: the cold solve did not converge (J, defects or EE error)")
+
+    # 4. the warm re-solve from the cold solve's end (tol_cost = 0: exactly
+    #    N_ITERS iterations), timed
+    warm = make_ilqr_solver(prob.plant, prob.cost,
+                            dataclasses.replace(cfg, tol_cost=0.0, max_iter=N_ITERS))
+    g_dev = on(torch, goal, dev)
+    one = lambda: warm(gpu.x, gpu.u, g_dev, P0=gpu.P, p0=gpu.p, d0=gpu.d)
+    one()
+    torch.cuda.synchronize()
+    reset_counts()
+    _, syncs = count_syncs(torch, one)
+    torch.cuda.synchronize()
+    per_solve = read_counts()
+    times = event_times(one, N_TIMED)
+    stats = warm.graphs.stats()[-1]
+    warm_ms = float(np.median(times))
+    print(f"urdf: warm {N_ITERS}-iteration re-solve (one graph replay): median {warm_ms:.3f} ms, "
+          f"min {min(times):.3f}, max {max(times):.3f} over {N_TIMED}; {warm_ms / kuka_warm_ms:.1f}"
+          f" x the kernel-backed Kuka's {kuka_warm_ms:.3f} ms (timing phase); graph captured "
+          f"and instantiated in {stats.seconds:.2f} s, {stats.nodes} nodes, WHILE bodies "
+          f"{list(stats.body_nodes)} (the first is the iteration's); host reads "
+          f"{warm.host_syncs} (torch sync-debug count {syncs}); riccati launches "
+          f"{per_solve['riccati']} a re-solve, {by_path['urdf_iiwa14']['riccati']} in the cold "
+          f"solve; on {card}", flush=True)
+    if warm.host_syncs or syncs or per_solve["riccati"] < N_ITERS:
+        fail(f"urdf: the warm re-solve read the host or skipped the Riccati kernel "
+             f"({warm.host_syncs} reads, {syncs} syncs, {per_solve})")
+    print(f"urdf: phase took {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return by_path, dict(warm_ms=warm_ms, body_nodes=stats.body_nodes, nodes=stats.nodes,
+                         capture_s=stats.seconds, cold_nodes=cold.nodes,
+                         cold_capture_s=cold.seconds, launches=per_solve)
 
 
 def constrained_problems(np):
@@ -2351,6 +2567,7 @@ def main():
     solver, cold, goal, launches, canon = solve_phase(torch, np, dev)
     median_ms, warm_solve, per_solve = timing_phase(torch, np, dev, solver, cold, goal)
     plant_launches, plant_summary = plants_phase(torch, np, dev, card)
+    urdf_launches, urdf_summary = urdf_phase(torch, np, dev, card, median_ms)
     al_launches, al_summary, al_caches = constraints_phase(torch, np, dev, card)
     fig8_launches, control_step, runner, per_step, fig8_caches, fleet = fig8_phase(
         torch, np, dev, card)
@@ -2384,7 +2601,8 @@ def main():
 
     # launches: the kernel's count on the path LAUNCHES_FROM names (the fig-8
     # closed loop where that runs it); launches_<path>: every path's own count
-    by_path = {"wafr_solve": launches, **plant_launches, **al_launches, **fig8_launches,
+    by_path = {"wafr_solve": launches, **plant_launches, **urdf_launches, **al_launches,
+               **fig8_launches,
                "wafr_batched": batched_launches}
     line = {"kernels": [
         {k: r[k] for k in ("name", "route", "source", "replaces")}
@@ -2405,6 +2623,12 @@ def main():
         f"{name} {v['warm_ms']:.3f} ms a warm {N_ITERS}-iteration re-solve, iteration body "
         f"{v['body_nodes'][0]} nodes" for name, v in plant_summary.items()) + f" on {card}",
         flush=True)
+    print(f"urdf: iiwa-14 URDF on the spatial-algebra core: {urdf_summary['warm_ms']:.3f} ms a "
+          f"warm {N_ITERS}-iteration re-solve ({urdf_summary['warm_ms'] / median_ms:.1f} x the "
+          f"kernel-backed Kuka's {median_ms:.3f} ms), iteration body "
+          f"{urdf_summary['body_nodes'][0]} nodes, graph {urdf_summary['nodes']} nodes captured in "
+          f"{urdf_summary['capture_s']:.2f} s; riccati {urdf_summary['launches']['riccati']} "
+          f"launches a re-solve on {card}", flush=True)
     print(f"constraints: inner-solve replay {al_summary['inner_ms']['cold']:.3f} ms cold, "
           f"{al_summary['inner_ms']['warm']:.3f} ms warm; constrained batched B={AL_BATCH} "
           f"{al_summary['batched_ms']:.3f} ms; AL MPC period {al_summary['period_ms']:.3f} ms "

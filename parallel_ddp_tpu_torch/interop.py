@@ -19,6 +19,7 @@ from parallel_ddp_tpu_torch.constraints import BoxConstraints
 from parallel_ddp_tpu_torch.models import Plant, cartpole, pendulum, quadrotor
 from parallel_ddp_tpu_torch.models.kuka import soa
 from parallel_ddp_tpu_torch.models.kuka.model import KukaParams, kuka
+from parallel_ddp_tpu_torch.models.urdf import ArmModel
 from parallel_ddp_tpu_torch.mpc.driver import MPCState
 
 
@@ -90,11 +91,26 @@ def plant(p) -> Plant:
     core mapping as `kuka_params`."""
     if p.name in _ANALYTIC:
         return _ANALYTIC[p.name]()
+    if p.name.startswith("urdf_"):
+        raise ValueError(
+            f"the reference plant {p.name!r} is a URDF arm: its name does not carry the "
+            "arm's constants; carry the parsed arm with `arm_model(arm)` and build the "
+            "plant with `models.urdf_plant`")
     m = re.fullmatch(r"kuka_ee(\d+)_g([^_]+)_(\w+)", p.name)
     if m is None:
         raise ValueError(f"no counterpart of the reference plant {p.name!r}")
     return kuka(KukaParams(ee_type=int(m.group(1)), gravity=float(m.group(2)),
                            core=_core(m.group(3))))
+
+
+def arm_model(arm) -> ArmModel:
+    """The reference's parsed URDF arm (`models.urdf.ArmModel`, numpy fields):
+    the arm's constants are its model parameters."""
+    arrays = ("r_tree", "p_tree", "i_spatial", "ee_offset", "ee_rot", "pos_lower", "pos_upper",
+              "vel_limit", "effort_limit")
+    return ArmModel(name=arm.name, joint_names=tuple(arm.joint_names),
+                    joint_types=arm.joint_types,
+                    **{f: np.array(np.asarray(getattr(arm, f))) for f in arrays})
 
 
 def kuka_constants(cc) -> soa._Consts:

@@ -7,9 +7,10 @@ import dataclasses
 import functools
 
 from parallel_ddp_tpu_torch.models.base import Plant
+from parallel_ddp_tpu_torch.models.kuka.rbd import KukaRBD
 from parallel_ddp_tpu_torch.models.kuka.soa import KukaSoA
 
-CORES = ("cuda", "soa")
+CORES = ("cuda", "soa", "rbd")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -27,16 +28,33 @@ class KukaParams:
     #          op launches its CUDA kernel on CUDA tensors and uses its plain
     #          PyTorch version (the soa core) on CPU tensors.
     #   "soa"  the same plant without those hooks.
+    #   "rbd"  the spatial-algebra core (models/kuka/rbd.py), no hooks: the
+    #          independent oracle, as in the JAX package.
+    #   "auto" rbd (`resolve_core`).
     core: str = "cuda"
 
     def __post_init__(self):
-        if self.core not in CORES:
-            raise ValueError(f"unknown core {self.core!r}; expected one of {CORES}")
+        self.resolved_core()
+
+    def resolved_core(self) -> str:
+        return resolve_core(self.core, allow_cuda=True)
+
+
+def resolve_core(core: str, allow_cuda: bool = False) -> str:
+    """Shared backend-selection policy (used by KukaParams and urdf_plant so
+    the two never drift): the JAX package's rule, "auto" = the scalar-channel
+    core on a TPU and the spatial-algebra core everywhere else.  This package
+    never runs on a TPU, so "auto" is "rbd" on every device.  "cuda" (the
+    Kuka's kernel hooks) only where allow_cuda."""
+    allowed = (set(CORES) | {"auto"}) if allow_cuda else {"auto", "soa", "rbd"}
+    if core not in allowed:
+        raise ValueError(f"unknown core {core!r}; expected one of {sorted(allowed)}")
+    return "rbd" if core == "auto" else core
 
 
 @functools.lru_cache(maxsize=8)
-def _soa(ee_type: int, gravity: float) -> KukaSoA:
-    return KukaSoA(ee_type=ee_type, gravity=gravity)
+def _core(ee_type: int, gravity: float, core: str):
+    return (KukaRBD if core == "rbd" else KukaSoA)(ee_type=ee_type, gravity=gravity)
 
 
 def kuka_params(mpc_mode: bool = False, ee_type: int = 1, core: str = "cuda") -> KukaParams:
@@ -45,12 +63,13 @@ def kuka_params(mpc_mode: bool = False, ee_type: int = 1, core: str = "cuda") ->
 
 def kuka(params: KukaParams | None = None) -> Plant:
     params = params or KukaParams()
-    rbd = _soa(params.ee_type, params.gravity)
+    core = params.resolved_core()
+    rbd = _core(params.ee_type, params.gravity, core)
     dynamics = rbd.forward_dynamics
     batched_step_jac = None
     fused_rollout = None
     sim_chain = None
-    if params.core == "cuda":
+    if core == "cuda":
         from parallel_ddp_tpu_torch.ops.cuda_rbd import kuka_qdd, make_kuka_ab
         from parallel_ddp_tpu_torch.ops.cuda_rollout import make_kuka_fused_rollout
         from parallel_ddp_tpu_torch.ops.cuda_sim_chain import make_kuka_sim_chain
@@ -72,7 +91,7 @@ def kuka(params: KukaParams | None = None) -> Plant:
             return make_kuka_sim_chain(_p.ee_type, _p.gravity, integrator, dt)
 
     return Plant(
-        name=f"kuka_ee{params.ee_type}_g{params.gravity:g}_{params.core}",
+        name=f"kuka_ee{params.ee_type}_g{params.gravity:g}_{core}",
         n_pos=7,
         n_ctrl=7,
         dynamics=dynamics,

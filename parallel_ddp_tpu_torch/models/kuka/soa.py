@@ -338,6 +338,14 @@ class SerialArmSoA:
         self.gravity = cc.gravity
         self._tensors = {}        # (device, dtype) -> `_frame_consts`
 
+    @classmethod
+    def from_tree(cls, r_tree, p_tree, i_spatial, ee_offset, gravity,
+                  joint_types=None, ee_rot=None):
+        """Public constructor from raw chain constants (the ArmModel/URDF
+        surface; keeps _Consts private to this module)."""
+        return cls(_Consts(r_tree, p_tree, i_spatial, ee_offset, gravity,
+                           joint_types=joint_types, ee_rot=ee_rot))
+
     def forward_dynamics(self, x, u):
         n = self.n
         q = _split(x[..., :n], n)

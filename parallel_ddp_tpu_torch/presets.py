@@ -1,7 +1,7 @@
 """Ready-made (plant, cost, config) problems (twin of
 `parallel_ddp_tpu/presets.py`): the WAFR example's five problems
-(examples/WAFR_iLQR_examples.cu) with the JAX package's defaults field for
-field, the EE goal helpers and the figure-8 task path."""
+(examples/WAFR_iLQR_examples.cu) and any URDF arm with the JAX package's
+defaults field for field, the EE goal helpers and the figure-8 task path."""
 
 from __future__ import annotations
 
@@ -27,7 +27,7 @@ from parallel_ddp_tpu_torch.costs.joint import (
     quadrotor_cost,
 )
 from parallel_ddp_tpu_torch.device import default_device
-from parallel_ddp_tpu_torch.models import cartpole, pendulum, quadrotor
+from parallel_ddp_tpu_torch.models import cartpole, load_urdf, pendulum, quadrotor, urdf_plant
 from parallel_ddp_tpu_torch.models.base import Plant
 from parallel_ddp_tpu_torch.models.kuka import kuka, kuka_params
 
@@ -110,6 +110,51 @@ def kuka_ee(num_time_steps=64, total_time=0.5, m_blocks=4, num_alpha=16,
         vel_limits=KUKA_VEL_LIMITS,
         torque_limits=KUKA_TORQUE_LIMITS,
     )
+    return Problem(plant, cost, cfg)
+
+
+def urdf_problem(source, tip=None, gravity: float = 9.81, ee: bool = False,
+                 num_time_steps=64, total_time=1.0, m_blocks=4, num_alpha=16,
+                 integrator=3, rho_init=5.0, use_limits: bool = False,
+                 safety: float = 0.8, freeze_branches: bool = False):
+    """Problem for any revolute/prismatic serial arm described by a URDF
+    (models/urdf.py), on `urdf_plant`'s "auto" core: the spatial-algebra
+    core.
+
+    ee=True uses the EE-pose cost family with the arm's own kinematics and
+    pose Jacobian; with use_limits=True the joint position/velocity/effort
+    limits parsed from the URDF feed the limit penalties (the reference
+    hardcodes its limits, cost_arm.cuh:12-25; `safety` is its 0.8 margin
+    factor).
+
+    gravity: for hardware that gravity-compensates in its own controller
+    (the reference's Kuka MPC convention, dynamics_arm.cuh:42-46) pass
+    gravity=0.  With full gravity the default EE weights' tiny control cost
+    still penalizes holding torque, which drags the optimum below the goal;
+    raise CostWeights appropriately or zero gravity."""
+    arm = load_urdf(source, tip=tip, freeze_branches=freeze_branches)
+    n = arm.n
+    plant = urdf_plant(
+        arm, gravity=gravity,
+        rho_init_default=rho_init, num_alpha_default=num_alpha,
+    )
+    cfg = SolverConfig(
+        num_time_steps=num_time_steps, total_time=total_time,
+        m_blocks_b=m_blocks, m_blocks_f=m_blocks, num_alpha=num_alpha,
+        alpha_base=0.5, integrator=integrator, rho_init=rho_init,
+        ee_cost=ee, use_limits=use_limits,
+    )
+    if ee:
+        pos_l = np.minimum(np.abs(arm.pos_lower), arm.pos_upper)
+        cost = ee_cost(
+            plant.ee_pos, plant.ee_jac, n, n, num_time_steps,
+            use_limits=use_limits,
+            pos_limits=np.asarray(pos_l * safety, np.float32),
+            vel_limits=np.asarray(arm.vel_limit * safety, np.float32),
+            torque_limits=np.asarray(arm.effort_limit * safety, np.float32),
+        )
+    else:
+        cost = joint_cost(f"{arm.name}_joint", num_time_steps, n, n)
     return Problem(plant, cost, cfg)
 
 

@@ -744,6 +744,36 @@ def test_preset_graphed_solve_matches_eager(dev, name):
         assert cuda_rbd.kuka_qdd_cuda.counter.launches > 0
 
 
+def test_urdf_graphed_solve_matches_eager(dev):
+    """The packaged iiwa-14 URDF (urdf_problem's EE cost on the spatial-
+    algebra core) at N = 16, 2 blocks, 4 alphas, Euler, with the fused
+    Riccati sweep: one graph replay against the same body run eagerly on the
+    card, with 0 host reads; the core's dynamics, its vmapped jacfwd AB and
+    the cost are captured op by op (the Cholesky solve by cuBLAS triangular
+    solves: MAGMA's batched one cannot be captured)."""
+    from parallel_ddp_tpu_torch import presets
+    from parallel_ddp_tpu_torch.config import CostWeights
+    from parallel_ddp_tpu_torch.models.urdf import IIWA14_URDF
+    from parallel_ddp_tpu_torch.solver import make_ilqr_solver
+
+    prob = presets.urdf_problem(IIWA14_URDF, ee=True, gravity=0.0, num_time_steps=16,
+                                total_time=0.5, m_blocks=2, num_alpha=4, integrator=1)
+    cfg = dataclasses.replace(prob.cfg, max_iter=6, pallas_riccati=True)
+    solver = make_ilqr_solver(prob.plant, prob.cost, cfg)
+    x_start = (np.random.default_rng(0).standard_normal(14) * 0.3).astype(np.float32)
+    x0 = torch.as_tensor(np.broadcast_to(x_start, (16, 14)).copy(), device=dev)
+    u0 = torch.zeros(16, 7, device=dev)
+    g = presets.ee_goal([0.3, -0.5, 0.4], device=dev)
+    cuda_riccati.riccati_cuda.counter.reset()
+    graphed = solver(x0, u0, g, initial_rollout=True)
+    assert solver.host_syncs == 0 and len(solver.graphs) == 1
+    eager, reads = solver.run(x0, u0, g, None, None, None, cfg.max_iter, CostWeights(), True,
+                              False)
+    assert reads > 0
+    _assert_same_run(graphed, eager)
+    assert cuda_riccati.riccati_cuda.counter.launches > 0
+
+
 # --- box constraints: the AL cost and the constrained MPC period
 
 @pytest.mark.parametrize("kind", ["pendulum", "kuka_ee"])

@@ -48,7 +48,8 @@ def test_port_has_modules():
                      "mpc/controls.py", "mpc/driver.py", "mpc/device_loop.py",
                      "mpc/simulator.py", "ops/cuda_sim_chain.py", "device.py", "graphs.py",
                      "models/pendulum.py", "models/cartpole.py", "models/quadrotor.py",
-                     "costs/joint.py", "constraints.py"):
+                     "costs/joint.py", "constraints.py", "models/kuka/rbd.py",
+                     "models/urdf.py"):
         assert expected in names
 
 
@@ -124,6 +125,19 @@ def test_fig8_data_is_the_ports_own_copy():
     assert own.resolve().is_relative_to(PORT.resolve())
     assert own.read_bytes() == (ROOT / "parallel_ddp_tpu" / "tasks" / "fig8_goals.npz").read_bytes()
     assert '"data/*.npz"' in (ROOT / "pyproject.toml").read_text()
+
+
+def test_iiwa_urdf_is_the_ports_own_copy():
+    """The packaged iiwa-14 URDF resolves inside the port (package data),
+    byte for byte the reference's."""
+    from parallel_ddp_tpu_torch.models import urdf
+
+    own = pathlib.Path(urdf.IIWA14_URDF)
+    assert own.resolve().is_relative_to(PORT.resolve())
+    assert own.read_bytes() == (ROOT / "parallel_ddp_tpu" / "models" / "data"
+                                / "iiwa14.urdf").read_bytes()
+    text = (ROOT / "pyproject.toml").read_text()
+    assert '"parallel_ddp_tpu_torch.models" = ["data/*.urdf"]' in text
 
 
 def test_pyproject_lists_every_port_package():
