@@ -8,7 +8,9 @@ Run from the root of a checkout, on a machine with an NVIDIA H100:
 Phases (each prints one line; any failure exits non-zero):
   1. device  — a CUDA device is required (there is no CPU fallback); prints
                the card's name and power limit as nvidia-smi reports them.
-  2. build   — compiles the CUDA kernels of `parallel_ddp_tpu_torch/csrc`.
+  2. build   — compiles the CUDA kernels of `parallel_ddp_tpu_torch/csrc`;
+               prints ptxas's registers and spills of each, and fails where
+               the forward-dynamics kernels (qdd, chain) spill.
   3. kernels — each kernel against its plain PyTorch version on the card, on
                seeded inputs at the main path's shapes, within a stated
                tolerance; each one's time against the plain version's and
@@ -17,8 +19,12 @@ Phases (each prints one line; any failure exits non-zero):
                RBD-Jacobian kernel also through its Euler epilogue, the
                discrete AB, against the composer on the plain Jacobian; the
                rollout kernel Euler and RK3; the simulation chain open loop
-               at T = 63 Euler, 4 x 16 Euler and
-               T = 15 RK3; the Riccati sweep at the Kuka's sizes, on blocks of
+               at T = 63 Euler, 4 x 16 Euler, T = 15 RK3, 256 chains of 63
+               (the fleet warm start) and 1,024 of 16 (the batched cold
+               rollout), and its runner mode, 10 substeps under a seeded
+               plan, each with its kernel alone, us a step and bound, and
+               each Euler chain also on its in-step schedule, which it must
+               equal bit for bit; the Riccati sweep at the Kuka's sizes, on blocks of
                96 steps, longer than its ring of staged steps, and at n = 4,
                m = 2, the run-time-size body, and at every shape a path of
                the plants, urdf and constraints phases gives it, from the
@@ -33,7 +39,7 @@ Phases (each prints one line; any failure exits non-zero):
                spatial-algebra core (`models/kuka/rbd.py` KukaRBD) on the
                card, at the JAX package's bounds for its two cores;
                the wrappers' host cost per enqueue apart from the kernels' own
-               time (CUDA-graph replay).
+               time (CUDA-graph replay; the forward dynamics at every B).
   4. solve   — the WAFR Kuka iiwa-14 end-effector solve (N=64, 4+4 blocks,
                16 alphas, Euler, gravity-compensated) with the fused Riccati
                sweep, cold then three warm re-solves along the figure-8 goal,
@@ -385,9 +391,9 @@ def ptxas_summary(log):
         m = re.search(r"Compiling entry function '_Z(\d+)(\w+)'", ln)
         if m:
             name, rest = m.group(2)[: int(m.group(1))], m.group(2)[int(m.group(1)):]
-            targs = re.match(r"I((?:Li\d+E)+)E", rest)
+            targs = re.match(r"I((?:L[ib]\d+E)+)E", rest)
             if targs:
-                name += "<" + ",".join(re.findall(r"Li(\d+)E", targs.group(1))) + ">"
+                name += "<" + ",".join(re.findall(r"L[ib](\d+)E", targs.group(1))) + ">"
         elif name and ("spill" in ln or "registers" in ln or "smem" in ln):
             out.append(f"{name}: {ln.split('info    :')[-1].strip()}")
     return out
@@ -627,6 +633,22 @@ def at_iters(gap):
     return "[" + ", ".join(f"{i}: {gap[i]:.1e}" for i in GAP_AT if i < len(gap)) + "]"
 
 
+def runner_inputs_read(np, args, sim_dt):
+    """What the chain's runner mode must read of its inputs (traj_x, traj_u,
+    traj_K, t0, traj_dt, t, x, steps): the clocks, the state, and of the plan
+    only the knots its clock reaches (x at each knot and the next, u and K at
+    each), found by the kernel's own float32 clock and index rule."""
+    traj_x, traj_u, traj_K, t0, traj_dt, t, x, steps = args
+    n = traj_x.shape[0]
+    t_k, t0_h, knots = np.float32(t.item()), np.float32(t0.item()), []
+    for _ in range(steps):
+        rel = (t_k - t0_h) / np.float32(traj_dt)
+        knots.append(int(min(max(np.floor(rel), 0), n - 2)) if np.isfinite(rel) else 0)
+        t_k = np.float32(t_k + np.float32(sim_dt))
+    lo, hi = min(knots), max(knots)
+    return [t0, t, x, traj_x[lo:hi + 2], traj_u[lo:hi + 1], traj_K[lo:hi + 1]]
+
+
 def kernel_phase(torch, np, dev):
     """Each kernel vs its plain version at the main path's shapes."""
     from parallel_ddp_tpu_torch.config import SolverConfig
@@ -847,60 +869,90 @@ def kernel_phase(torch, np, dev):
         qdd["max_abs_err"] = max(qdd["max_abs_err"], err)
         qdd["max_abs_err_rbd_core"] = max(qdd["max_abs_err_rbd_core"], core_err)
         qdd["ok"] = qdd["ok"] and ok and core_ok
+        host_us, kernel_us = host_and_kernel_us(lambda: cuda_rbd.kuka_qdd_cuda(x, u, 1, grav), 1000)
+        print(f"kernels: qdd B={B} wrapper: host {host_us:.2f} us per enqueue (1000 enqueues, no "
+              f"sync); kernel alone {kernel_us:.2f} us (CUDA-graph replay)", flush=True)
         if B == QDD_BATCHES[0]:
             qdd["ms"], qdd["plain_ms"] = ms, plain_ms
             qdd.update(roofline((x, u), [got], count_ops(
                 lambda: cuda_rbd.kuka_qdd_plain(x, u, 1, 0.0))))
-            qdd["host_us"], qdd["kernel_us"] = host_and_kernel_us(
-                lambda: cuda_rbd.kuka_qdd_cuda(x, u, 1, 0.0), 1000)
-            print(f"kernels: qdd B=1 wrapper: host {qdd['host_us']:.2f} us per enqueue (1000 "
-                  f"enqueues, no sync); kernel alone {qdd['kernel_us']:.2f} us (CUDA-graph "
-                  f"replay)", flush=True)
+            qdd["host_us"], qdd["kernel_us"] = host_us, kernel_us
         else:
             qdd[f"ms_b{B}"], qdd[f"plain_ms_b{B}"] = ms, plain_ms
-            if B == QDD_FD_BATCH:
-                qdd[f"bound_ms_b{B}"] = roofline((x, u), [got], count_ops(
-                    lambda: cuda_rbd.kuka_qdd_plain(x, u, 1, grav)))["bound_ms"]
+            qdd[f"host_us_b{B}"], qdd[f"kernel_us_b{B}"] = host_us, kernel_us
+            qdd[f"bound_ms_b{B}"] = roofline((x, u), [got], count_ops(
+                lambda: cuda_rbd.kuka_qdd_plain(x, u, 1, grav)))["bound_ms"]
     results.append(qdd)
 
     # -- simulation chain, open loop: the MPC warm start's 63 Euler steps from
-    #    one state, the cold rollout's 4 blocks x 16 Euler steps, and 15 RK3
-    #    steps; the plain version is the step repeated in a Python loop
+    #    one state, the cold rollout's 4 blocks x 16 Euler steps, 15 RK3 steps,
+    #    the fleet warm start's 256 chains of 63 and the batched cold rollout's
+    #    1,024 chains of 16; runner mode: the closed loop's 10 substeps at 1 kHz
+    #    under a seeded 64-knot plan (the fig8 phase repeats it from the settled
+    #    fig-8 state).  The plain version is the step repeated in a Python loop.
+    #    The Euler chain runs a step ahead; it must equal its in-step schedule
+    #    bit for bit, and both are timed.
     chain = dict(name="sim_chain", route="cuda",
                  source="parallel_ddp_tpu_torch/csrc/sim_chain.cu",
                  replaces="parallel_ddp_tpu/ops/pallas_rbd.py:39", max_abs_err=0.0, ok=True)
+    plan = (f32(rng.normal(0, 0.3, (N, nx))), f32(rng.normal(0, 1.0, (N, nu))),
+            f32(rng.normal(0, 0.05, (N, nu, nx))))
+    runner_args = (*plan, f32(0.25), dt, f32(0.2617), f32(rng.normal(0, 0.3, nx)), 10)
     for label, integ, lead, T, grav in (
             ("warm start", 1, (), N - 1, 0.0), ("cold rollout", 1, (M,), N // M, 0.0),
-            ("rk3", 3, (), 15, 0.0), ("cold rollout gravity", 1, (M,), N // M, GRAVITY)):
-        x0 = f32(rng.normal(0, 0.3, lead + (nx,)))
-        u = f32(rng.normal(0, 1.0, lead + (T, nu)))
-        kw = dict(ee_type=1, gravity=grav, integrator=integ, dt=dt)
-        step = cuda_rollout._kuka_step(1, grav, integ, dt)
-        call = lambda: cuda_sim_chain.kuka_open_loop_cuda(x0, u, **kw)
-        plain = lambda: cuda_sim_chain.open_loop_plain(step, x0, u)
+            ("rk3", 3, (), 15, 0.0), ("cold rollout gravity", 1, (M,), N // M, GRAVITY),
+            ("fleet warm start", 1, (256,), N - 1, 0.0),
+            ("batched cold rollout", 1, (1024,), N // M, 0.0), ("runner", 1, None, 10, 0.0)):
+        if lead is None:
+            sim_dt = 1.0 / FIG8_SIM_HZ
+            step = cuda_rollout._kuka_step(1, grav, integ, sim_dt)
+            kw = dict(ee_type=1, gravity=grav, integrator=integ, sim_dt=sim_dt)
+            call = lambda ahead=True: cuda_sim_chain.kuka_runner_cuda(*runner_args, ahead=ahead,
+                                                                      **kw)
+            plain = lambda: cuda_sim_chain.runner_plain(step, sim_dt, *runner_args)
+            inputs = runner_inputs_read(np, runner_args, sim_dt)
+        else:
+            x0 = f32(rng.normal(0, 0.3, lead + (nx,)))
+            u = f32(rng.normal(0, 1.0, lead + (T, nu)))
+            kw = dict(ee_type=1, gravity=grav, integrator=integ, dt=dt)
+            step = cuda_rollout._kuka_step(1, grav, integ, dt)
+            call = lambda ahead=True: cuda_sim_chain.kuka_open_loop_cuda(x0, u, ahead=ahead, **kw)
+            plain = lambda: cuda_sim_chain.open_loop_plain(step, x0, u)
+            inputs = (x0, u)
         got = call()
-        err, ok = compare("sim_chain", [got], [plain()])
+        got = list(got) if lead is None else [got]
+        err, ok = compare("sim_chain", got, list(plain()) if lead is None else [plain()])
         ms, plain_ms = cuda_ms(call, 50), cuda_ms(plain, 1, warmup=0)
         host_us, kernel_us = host_and_kernel_us(call, 500)
+        bound = roofline(inputs, got, count_ops(plain))
         print(f"kernels: sim_chain {label} (integrator {integ}, gravity {grav}, "
-              f"{lead or (1,)} x T={T}): "
+              f"{'runner' if lead is None else lead or (1,)} x T={T}): "
               f"max_abs_err {err:.3e} ({'ok' if ok else 'OUT OF TOLERANCE'}); {ms:.4f} ms vs "
               f"plain {plain_ms:.3f} ms; host {host_us:.2f} us per enqueue (500 enqueues), "
-              f"kernel alone {kernel_us:.2f} us ({kernel_us / T:.3f} us per step)", flush=True)
+              f"kernel alone {kernel_us:.2f} us ({kernel_us / T:.3f} us per step); bound "
+              f"{bound['bound_ms']:.3e} ms by {bound['bound_by']} ({bound['bytes']} B, "
+              f"{bound['operations']} operations)", flush=True)
         chain["max_abs_err"] = max(chain["max_abs_err"], err)
         chain["ok"] = chain["ok"] and ok
+        key = label.replace(" ", "_")
+        if integ == 1:
+            # the in-step schedule: the same bits, its own time
+            same = all(torch.equal(g, r) for g, r in zip(
+                got, call(False) if lead is None else [call(False)]))
+            in_step_us = host_and_kernel_us(lambda: call(False), 100)[1]
+            print(f"kernels: sim_chain {label}, in-step schedule: "
+                  f"{'bit for bit the same' if same else 'DIFFERENT'} states; kernel alone "
+                  f"{in_step_us:.2f} us ({in_step_us / T:.3f} us per step) against "
+                  f"{kernel_us:.2f} us a step ahead", flush=True)
+            chain["ok"] = chain["ok"] and same
+            chain[f"kernel_us_in_step_{key}"] = in_step_us
         if label == "warm start":
-            chain.update(ms=ms, plain_ms=plain_ms, host_us=host_us, kernel_us=kernel_us,
-                         **roofline((x0, u), [got], count_ops(plain)))
+            chain.update(ms=ms, plain_ms=plain_ms, host_us=host_us, kernel_us=kernel_us, **bound)
         else:
-            key = label.replace(" ", "_")
-            bound = roofline((x0, u), [got], count_ops(plain))
             chain.update({f"ms_{key}": ms, f"plain_ms_{key}": plain_ms,
+                          f"host_us_{key}": host_us, f"kernel_us_{key}": kernel_us,
                           f"bound_ms_{key}": bound["bound_ms"],
                           f"bound_by_{key}": bound["bound_by"]})
-            print(f"kernels: sim_chain {label}: bound {bound['bound_ms']:.3e} ms by "
-                  f"{bound['bound_by']} ({bound['bytes']} B, {bound['operations']} operations)",
-                  flush=True)
     results.append(chain)
 
     for r in results:
@@ -2552,8 +2604,15 @@ def main():
         build.library()
     except RuntimeError as e:
         fail(f"build: {e}")
+    ptxas = ptxas_summary(log)
     print(f"build: {path.name} in {time.perf_counter() - t0:.1f} s (nvcc {nvcc_s:.1f} s); "
-          f"ptxas: {' | '.join(ptxas_summary(log))}", flush=True)
+          f"ptxas: {' | '.join(ptxas)}", flush=True)
+    # the forward-dynamics kernels on the thread-group core spill nothing
+    group = [ln for ln in ptxas if ln.startswith(("qdd_kernel", "sim_chain_kernel"))]
+    print(f"build: ptxas of the qdd and chain kernels: {' | '.join(group)}", flush=True)
+    spills = [ln for ln in group if re.search(r"[1-9]\d* bytes spill", ln)]
+    if spills or not group:
+        fail(f"build: the qdd / chain kernels spill registers or were not reported: {spills}")
     # the launch counters that graphs increment on the device, one per wrapper
     # (the wrappers' modules register them when imported)
     from parallel_ddp_tpu_torch.ops import cuda_rbd, cuda_riccati, cuda_rollout, cuda_sim_chain  # noqa: F401

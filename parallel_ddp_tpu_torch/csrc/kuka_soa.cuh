@@ -3,13 +3,14 @@
 //
 // This is `models/kuka/soa.py::qdd_channels` written out by hand in C++: the
 // same RNEA bias sweep (gravity as base acceleration), the same CRBA mass
-// matrix and the same unrolled 7x7 Cholesky solve, step for step.  One
-// thread runs a whole evaluation: the forward-dynamics and simulation-chain
-// kernels (qdd.cu, sim_chain.cu) instantiate it on float.  The rollout and
-// RBD-Jacobian kernels (rollout.cu, rbd_jac.cu) run the same formulas split
-// over a thread group (kuka_soa_group.cuh, built on the helpers here), on
-// float and on the dual number defined below, which carries one forward-mode
-// tangent.
+// matrix and the same unrolled 7x7 Cholesky solve, step for step, in one
+// thread.  The kernels (qdd.cu, sim_chain.cu, rollout.cu, rbd_jac.cu) run the
+// same formulas split over a thread group (kuka_soa_group.cuh, built on the
+// helpers here), on float and on the dual number defined below, which
+// carries one forward-mode tangent; kuka_qdd itself is what the group core
+// is held to on the host (tests/test_torch_group_core.py,
+// tests/test_torch_chain_group.py) and what scripts/torch_dynamics_phases.py
+// times beside it.
 //
 // Differences from the Python core, all in rounding only:
 //   * the Python core skips the zero entries of the spatial inertias when it

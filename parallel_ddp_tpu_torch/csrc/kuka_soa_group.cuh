@@ -34,9 +34,15 @@
 //             column i as soon as its level's barrier completes (warp 2:
 //             columns 6, 3, 2; warp 7, after its links: 5, 4, 1), so the
 //             walks end a step or two after the composites.
-//   solve   warp 0: the unrolled Cholesky and the two substitutions (21 IEEE
-//             divisions and 7 square roots, ~70 cycles each, on one
-//             dependent chain).
+//   solve   warp 0: the unrolled Cholesky (kg_factor: 7 square roots and 7
+//             reciprocals) and the two substitutions (kg_subs: 14
+//             divisions), ~70 cycles each IEEE operation, on one dependent
+//             chain.
+//
+// The roles take the column's trig from fields tb .. tb + 13 (KG_CQ by
+// default), so a caller can keep two steps' trig apart; the simulation chain
+// (kuka_chain_group.cuh) does, and runs the factor of the next step beside
+// this step's RNEA.  rollout.cu, rbd_jac.cu and qdd.cu run the stages below.
 //
 // Split by output element, never a sum: every scalar is computed by one
 // thread with the expression and the order of kuka_soa.cuh (a role repeats
@@ -100,10 +106,12 @@ struct KgCol {
   __device__ __forceinline__ T& operator[](int f) const { return p[f * KG_LANES]; }
 };
 
+// The trig of a column: cos q_i at field tb + i, sin q_i at tb + KUKA_NJ + i;
+// tb = KG_CQ but where a caller keeps more than one set (kuka_chain_group.cuh).
 template <typename T>
 __device__ __forceinline__ void kg_rot(const float* __restrict__ cc, KgCol<T> col, int i,
-                                       T r[3][3]) {
-  local_rot(cc, i, T(col[KG_CQ + i]), T(col[KG_SQ + i]), r);
+                                       T r[3][3], int tb = KG_CQ) {
+  local_rot(cc, i, T(col[tb + i]), T(col[tb + KUKA_NJ + i]), r);
 }
 
 // ---------------------------------------------------------------- roles --
@@ -121,7 +129,7 @@ __device__ __forceinline__ void kg_trig(KgCol<T> col, int w) {
 // RNEA forward sweep (qdd = 0, gravity as base acceleration) to link L, then
 // that link's bias force f = I a + v x* (I v)
 template <typename T>
-__device__ void kg_link(const float* __restrict__ cc, KgCol<T> col, int L) {
+__device__ void kg_link(const float* __restrict__ cc, KgCol<T> col, int L, int tb = KG_CQ) {
   T w[3] = {T(0.f), T(0.f), T(0.f)};
   T v[3] = {T(0.f), T(0.f), T(0.f)};
   T dw[3] = {T(0.f), T(0.f), T(0.f)};
@@ -129,7 +137,7 @@ __device__ void kg_link(const float* __restrict__ cc, KgCol<T> col, int L) {
 #pragma unroll 1
   for (int i = 0; i <= L; ++i) {
     T r[3][3];
-    kg_rot(cc, col, i, r);
+    kg_rot(cc, col, i, r, tb);
     const float* p = cc + KC_P + 3 * i;
     T pv[3] = {T(p[0]), T(p[1]), T(p[2])};
     T t[3];
@@ -167,7 +175,7 @@ __device__ void kg_link(const float* __restrict__ cc, KgCol<T> col, int L) {
 
 // RNEA backward sweep over the link forces: bias torques
 template <typename T>
-__device__ void kg_backward(const float* __restrict__ cc, KgCol<T> col) {
+__device__ void kg_backward(const float* __restrict__ cc, KgCol<T> col, int tb = KG_CQ) {
   T n_acc[3] = {T(0.f), T(0.f), T(0.f)};
   T f_acc[3] = {T(0.f), T(0.f), T(0.f)};
 #pragma unroll 1
@@ -180,7 +188,7 @@ __device__ void kg_backward(const float* __restrict__ cc, KgCol<T> col) {
     }
     col[KG_CB + i] = nt[2];
     T r[3][3];
-    kg_rot(cc, col, i, r);
+    kg_rot(cc, col, i, r, tb);
     force_to_parent(r, cc + KC_P + 3 * i, nt, ft);
 #pragma unroll
     for (int k = 0; k < 3; ++k) { n_acc[k] = nt[k]; f_acc[k] = ft[k]; }
@@ -192,7 +200,7 @@ __device__ void kg_backward(const float* __restrict__ cc, KgCol<T> col) {
 // every level it keeps F = Ic_i [e3; 0] = [A[:,2]; B[2,:]], where column
 // i's walk starts, and arrives at the level's barrier
 template <typename T>
-__device__ void kg_composites(const float* __restrict__ cc, KgCol<T> col) {
+__device__ void kg_composites(const float* __restrict__ cc, KgCol<T> col, int tb = KG_CQ) {
   const int n = KUKA_NJ;
   T A[3][3], Bm[3][3], D[3][3];
   {
@@ -215,7 +223,7 @@ __device__ void kg_composites(const float* __restrict__ cc, KgCol<T> col) {
   for (int i = n - 1; i >= 1; --i) {
     // ic[i-1] = I[i-1] + X^T ic[i] X with X = [[R, 0], [S, R]], R = r^T, S = -r^T p^
     T r[3][3], rt[3][3], sk[3][3], s_m[3][3];
-    kg_rot(cc, col, i, r);
+    kg_rot(cc, col, i, r, tb);
     m_T(r, rt);
     const float* p = cc + KC_P + 3 * i;
     sk[0][0] = T(0.f);  sk[0][1] = T(-p[2]); sk[0][2] = T(p[1]);
@@ -261,7 +269,7 @@ __device__ void kg_composites(const float* __restrict__ cc, KgCol<T> col) {
 // mass-matrix column i below the diagonal: its level's F walked to the root,
 // once the level is there (the leaf's F is the link's own inertia: constants)
 template <typename T>
-__device__ void kg_walk(const float* __restrict__ cc, KgCol<T> col, int i) {
+__device__ void kg_walk(const float* __restrict__ cc, KgCol<T> col, int i, int tb = KG_CQ) {
   T nf[3], ff[3];
   if (i == KUKA_NJ - 1) {
     const float* ii = cc + KC_I + 36 * i;
@@ -275,16 +283,20 @@ __device__ void kg_walk(const float* __restrict__ cc, KgCol<T> col, int i) {
 #pragma unroll 1
   for (int j = i - 1; j >= 0; --j) {
     T r[3][3];
-    kg_rot(cc, col, j + 1, r);
+    kg_rot(cc, col, j + 1, r, tb);
     force_to_parent(r, cc + KC_P + 3 * (j + 1), nf, ff);
     col[KG_M + i * (i - 1) / 2 + j] = nf[2];
   }
   KG_MARK(20 + i);
 }
 
-// qdd = M^{-1} (tau - C) by the unrolled Cholesky of kuka_soa.cuh
+// The unrolled Cholesky of kuka_soa.cuh in two parts: the factor L of M (the
+// diagonal from the composites' A[2][2], the rest from the walks), and the
+// two substitutions qdd = L^-T L^-1 (tau - C).  kg_solve runs both in one
+// thread; the Euler chain (kuka_chain_group.cuh) runs the factor of the next
+// step beside this one's RNEA and hands L on through the column.
 template <typename T>
-__device__ void kg_solve(KgCol<T> col) {
+__device__ __forceinline__ void kg_factor(KgCol<T> col, T L[KUKA_NJ][KUKA_NJ]) {
   const int n = KUKA_NJ;
   T M[KUKA_NJ][KUKA_NJ];
 #pragma unroll
@@ -293,7 +305,6 @@ __device__ void kg_solve(KgCol<T> col) {
 #pragma unroll
     for (int j = 0; j < i; ++j) M[i][j] = col[KG_M + i * (i - 1) / 2 + j];
   }
-  T L[KUKA_NJ][KUKA_NJ];
 #pragma unroll
   for (int j = 0; j < n; ++j) {
     T acc = M[j][j];
@@ -309,6 +320,13 @@ __device__ void kg_solve(KgCol<T> col) {
       L[i][j] = a2 * inv;
     }
   }
+}
+
+// qdd = L^-T L^-1 (tau - C) into KG_QDD, with L lower triangular (the upper
+// part is not read)
+template <typename T>
+__device__ __forceinline__ void kg_subs(KgCol<T> col, const T L[KUKA_NJ][KUKA_NJ]) {
+  const int n = KUKA_NJ;
   T z[KUKA_NJ], qdd[KUKA_NJ];
 #pragma unroll
   for (int i = 0; i < n; ++i) {
@@ -326,6 +344,14 @@ __device__ void kg_solve(KgCol<T> col) {
   }
 #pragma unroll
   for (int i = 0; i < n; ++i) col[KG_QDD + i] = qdd[i];
+}
+
+// qdd = M^{-1} (tau - C): both parts in one thread
+template <typename T>
+__device__ void kg_solve(KgCol<T> col) {
+  T L[KUKA_NJ][KUKA_NJ];
+  kg_factor(col, L);
+  kg_subs(col, L);
 }
 
 // --------------------------------------------------------------- stages --

@@ -5,46 +5,56 @@
 // pallas_rbd.py:86), which runs soa.qdd_channels on (8, 128) lane tiles of
 // 1024 samples, one scalar channel per VMEM tile.
 //
-// Design: one thread per sample runs kuka_qdd<float> (kuka_soa.cuh, the
-// chain the simulation-chain kernel steps) entirely in registers: it
-// reads 84 bytes and writes 28 bytes per sample, and no intermediate of the
-// ~2k-operation chain leaves the thread.  The TPU's lane tiling has no
-// counterpart here: a warp's 32 samples are its lanes.
+// What bounds it on the H100: one evaluation is a ~2k-operation dataflow on
+// 84 bytes in and 28 out, so the launch is latency-bound by that chain: at the
+// block re-rollout's B = 1 it is the launch and one evaluation; at the FD
+// Jacobian's 2,646 samples and the batched dynamics benchmark's 8,192 it is
+// 83 and 256 blocks of one evaluation each on 132 SMs (~1 MB moved in all).
 //
-// What bounds it on the H100: at the closed loop's B = 1 (one plant or
-// warm-start step at a time) the launch is one thread, so its time is the
-// launch latency plus one serial chain.  At B = 8192 (the batched dynamics
-// benchmark) it is 8192 threads, 64 to a block, so 128 blocks spread over
-// the 132 SMs; each thread's chain is latency-bound (dependent float ops,
-// register pressure), not bandwidth-bound (~1 MB moved in all).
+// Design: the group core (kuka_soa_group.cuh), as rollout.cu and rbd_jac.cu
+// run it.  A block of KG_WARPS warps takes 32 samples, lane l of every warp
+// sample l, so the roles of an evaluation run side by side in the warps and
+// its chain is the longest role of each stage, not the whole operation
+// count.  Warp w < 7 loads element w of q, qd and tau, takes cos/sin of joint
+// w and at the end stores qdd[w].  The constants are staged in shared memory
+// once a block.  A first version ran one sample in one thread (kuka_soa.cuh's
+// kuka_qdd), 64 threads a block.
 
 #include <cuda_runtime.h>
 
-#include "kuka_soa.cuh"
+#include "kuka_soa_group.cuh"
 
 #define QDD_NX (2 * KUKA_NJ)
 
-__global__ void qdd_kernel(const float* __restrict__ cc, const float* __restrict__ x,
-                           const float* __restrict__ u, float* __restrict__ qdd, int batch) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= batch) return;
-  float q[KUKA_NJ], qd[KUKA_NJ], tau[KUKA_NJ], out[KUKA_NJ];
-#pragma unroll
-  for (int i = 0; i < KUKA_NJ; ++i) {
-    q[i] = x[b * QDD_NX + i];
-    qd[i] = x[b * QDD_NX + KUKA_NJ + i];
-    tau[i] = u[b * KUKA_NJ + i];
+__global__ void __launch_bounds__(KG_THREADS)
+qdd_kernel(const float* __restrict__ cc_g, const float* __restrict__ x,
+           const float* __restrict__ u, float* __restrict__ qdd, int batch) {
+  __shared__ float cc[KC_SIZE];
+  __shared__ float ws[KG_FIELDS * KG_LANES];
+  const int lane = threadIdx.x & (KG_LANES - 1), w = threadIdx.x >> 5;
+  const int b = blockIdx.x * KG_LANES + lane;
+  const bool valid = b < batch;
+  const size_t bc = valid ? b : batch - 1;     // spare lanes repeat the last sample, store nothing
+
+  for (int i = threadIdx.x; i < KC_SIZE; i += KG_THREADS) cc[i] = cc_g[i];
+  KgCol<float> col{ws + lane};
+  if (w < KUKA_NJ) {
+    col[KG_X + w] = x[bc * QDD_NX + w];
+    col[KG_X + KUKA_NJ + w] = x[bc * QDD_NX + KUKA_NJ + w];
+    col[KG_TAU + w] = u[bc * KUKA_NJ + w];
+    kg_trig(col, w);
   }
-  kuka_qdd<float>(cc, q, qd, tau, out);
-#pragma unroll
-  for (int i = 0; i < KUKA_NJ; ++i) qdd[b * KUKA_NJ + i] = out[i];
+  __syncthreads();
+  kuka_qdd_group_after_trig(cc, col, w);
+  __syncthreads();
+  if (valid && w < KUKA_NJ) qdd[bc * KUKA_NJ + w] = col[KG_QDD + w];
 }
 
 extern "C" int pddp_qdd(const float* consts, const float* x, const float* u, float* qdd,
                         int batch, void* stream) {
   if (batch <= 0) return 0;
-  const int threads = 64;
-  const int blocks = (batch + threads - 1) / threads;
-  qdd_kernel<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(consts, x, u, qdd, batch);
+  const int blocks = (batch + KG_LANES - 1) / KG_LANES;
+  qdd_kernel<<<blocks, KG_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(consts, x, u, qdd,
+                                                                          batch);
   return static_cast<int>(cudaGetLastError());
 }

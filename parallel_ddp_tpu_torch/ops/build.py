@@ -55,6 +55,8 @@ _SIGNATURES = {
     # consts, x0, u, traj_x, traj_u, traj_K, t0, t, xs, t_out, batch, T, n_traj,
     # traj_dt, sim_dt, use_feedback, integrator, h, h_half, h_sixth, stream
     "pddp_sim_chain": (_P,) * 10 + (_I, _I, _I, _F, _F, _I, _I, _F, _F, _F, _P),
+    # the same arguments: the Euler chain on the in-step schedule
+    "pddp_sim_chain_in_step": (_P,) * 10 + (_I, _I, _I, _F, _F, _I, _I, _F, _F, _F, _P),
     # parent stream, flag, body stream, capture mode, handle out, body graph out
     "pddp_while_begin": (_P, _P, _P, _I, ctypes.POINTER(ctypes.c_ulonglong),
                          ctypes.POINTER(ctypes.c_void_p)),

@@ -5,9 +5,11 @@ that turns the Jacobian into the discrete AB.
 Twin of `parallel_ddp_tpu/ops/pallas_rbd.py`.  `kuka_qdd(x, u)` returns qdd
 (..., 7) for any leading dims:
   * on CPU tensors, its plain version: the torch soa `forward_dynamics`;
-  * on CUDA tensors, the hand-written kernel `csrc/qdd.cu` (one thread per
-    sample), or it raises.  The kernel has no backward (`kuka_jac_qdd` is
-    its derivative): under autograd or a `torch.func` transform it raises.
+  * on CUDA tensors, the hand-written kernel `csrc/qdd.cu` (a thread group
+    per sample, one thread in each warp of a block of 32 samples: the group
+    core `csrc/kuka_soa_group.cuh`), or it raises.  The kernel has no
+    backward (`kuka_jac_qdd` is its derivative): under autograd or a
+    `torch.func` transform it raises.
 `Plant.dynamics` of the "cuda" core is `kuka_qdd`: batched single evaluations
 of the dynamics launch it.  Chains of dependent integrator steps (cold
 rollout, MPC warm start, plant substeps) go through `ops/cuda_sim_chain.py`,

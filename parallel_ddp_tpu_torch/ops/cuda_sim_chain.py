@@ -18,8 +18,12 @@ and the closed loop's plant substeps.  Here each such scan is one call of a
 plant's own (`Plant.sim_chain`, the Kuka "cuda" core's) or the plain loops
 over `make_step`.  The Kuka's chain runs
   * on CPU tensors, the plain versions: the step repeated in a Python loop;
-  * on CUDA tensors, the kernel `csrc/sim_chain.cu` (one thread per sample,
-    the state in registers across the steps), or it raises.
+  * on CUDA tensors, the kernel `csrc/sim_chain.cu` (a thread group per
+    sample, 32 samples a block, the state in registers across the steps; the
+    Euler chain computes each step's mass matrix and its factor a step
+    ahead), or it raises.  `ahead=False` runs the Euler chain on the in-step
+    schedule, which the one-step-ahead chain equals bit for bit: for checks
+    on the card.
 """
 
 from __future__ import annotations
@@ -87,19 +91,22 @@ def runner_plain(step, sim_dt, traj_x, traj_u, traj_K, t0, traj_dt, t, x, steps,
 
 
 def _launch(x0, u, traj, clocks, xs, t_out, batch, steps, traj_dt, sim_dt, use_feedback,
-            ee_type, gravity, integrator, dt):
+            ee_type, gravity, integrator, dt, ahead):
     cc = consts_tensor(ee_type, float(gravity), x0.device)
     ptr = lambda a: None if a is None else a.data_ptr()
     build.launch(
-        "pddp_sim_chain", x0.device, cc.data_ptr(), x0.data_ptr(), ptr(u),
-        ptr(traj[0]), ptr(traj[1]), ptr(traj[2]), ptr(clocks[0]), ptr(clocks[1]),
-        xs.data_ptr(), ptr(t_out), batch, steps, 0 if traj[0] is None else traj[0].shape[0],
-        traj_dt, sim_dt, int(use_feedback), integrator, dt, 0.5 * dt, dt / 6.0)
+        "pddp_sim_chain" if ahead else "pddp_sim_chain_in_step", x0.device, cc.data_ptr(),
+        x0.data_ptr(), ptr(u), ptr(traj[0]), ptr(traj[1]), ptr(traj[2]), ptr(clocks[0]),
+        ptr(clocks[1]), xs.data_ptr(), ptr(t_out), batch, steps,
+        0 if traj[0] is None else traj[0].shape[0], traj_dt, sim_dt, int(use_feedback),
+        integrator, dt, 0.5 * dt, dt / 6.0)
 
 
-def kuka_open_loop_cuda(x0, u, *, ee_type: int, gravity: float, integrator: int, dt: float):
+def kuka_open_loop_cuda(x0, u, *, ee_type: int, gravity: float, integrator: int, dt: float,
+                        ahead: bool = True):
     """Launch the chain kernel in open-loop mode on CUDA tensors x0 (..., 14),
-    u (..., T, 7) with the same leading dims; returns xs (..., T, 14)."""
+    u (..., T, 7) with the same leading dims; returns xs (..., T, 14).
+    `ahead=False`: the Euler chain on the in-step schedule."""
     lead, steps = x0.shape[:-1], u.shape[-2]
     if u.shape[:-2] != lead:
         raise ValueError(f"x0 {tuple(x0.shape)} and u {tuple(u.shape)} differ in leading dims")
@@ -115,7 +122,7 @@ def kuka_open_loop_cuda(x0, u, *, ee_type: int, gravity: float, integrator: int,
     xs = torch.empty(lead + (steps, NS), device=xf.device, dtype=torch.float32)
     if batch and steps:
         _launch(xf, uf, (None, None, None), (None, None), xs, None, batch, steps, 0.0, 0.0,
-                False, ee_type, gravity, integrator, dt)
+                False, ee_type, gravity, integrator, dt, ahead)
         kuka_open_loop_cuda.counter.hit(xf.device)
     return xs
 
@@ -124,11 +131,13 @@ kuka_open_loop_cuda.counter = build.launch_counter("sim_chain_open_loop")
 
 
 def kuka_runner_cuda(traj_x, traj_u, traj_K, t0, traj_dt, t, x, steps, use_feedback=True, *,
-                     ee_type: int, gravity: float, integrator: int, sim_dt: float):
+                     ee_type: int, gravity: float, integrator: int, sim_dt: float,
+                     ahead: bool = True):
     """Launch the chain kernel in trajectory-runner mode: the plan traj_x
     (N, 14), traj_u (N, 7), traj_K (N, 7, 14), its start time t0 and the plant
     clock t (0-d float32 tensors on the device, never read on the host), the
-    plant state x (14,).  Returns (xs (steps, 14), the advanced clock)."""
+    plant state x (14,).  Returns (xs (steps, 14), the advanced clock).
+    `ahead=False`: the Euler chain on the in-step schedule."""
     n_traj = traj_x.shape[0]
     if n_traj < 2 or steps < 1:
         raise ValueError(f"the runner needs a plan of >= 2 knots and >= 1 step; "
@@ -148,7 +157,7 @@ def kuka_runner_cuda(traj_x, traj_u, traj_K, t0, traj_dt, t, x, steps, use_feedb
     out = torch.empty(steps * NS + 1, device=x.device, dtype=torch.float32)
     xs, t_new = out[:steps * NS].view(steps, NS), out[steps * NS]
     _launch(x, None, (traj_x, traj_u, traj_K), (t0, t), xs, t_new, 1, steps, traj_dt, sim_dt,
-            use_feedback, ee_type, gravity, integrator, sim_dt)
+            use_feedback, ee_type, gravity, integrator, sim_dt, ahead)
     kuka_runner_cuda.counter.hit(x.device)
     return xs, t_new
 

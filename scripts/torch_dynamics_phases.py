@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Where one forward-dynamics step of the port's Kuka kernels spends its
-cycles, on the card: the one-thread core (`csrc/kuka_soa.cuh`, what `qdd.cu`
-and `sim_chain.cu` run) and the group core (`csrc/kuka_soa_group.cuh`, what
-`rollout.cu` and `rbd_jac.cu` run: one thread in each of 9 warps per
-evaluation).
+cycles, on the card: the one-thread core (`csrc/kuka_soa.cuh`, which no
+kernel runs: the formulas the group core is held to) and the group core
+(`csrc/kuka_soa_group.cuh`, what `rollout.cu`, `rbd_jac.cu`, `qdd.cu` and,
+through `csrc/kuka_chain_group.cuh`, `sim_chain.cu` run: one thread in each of
+9 warps per evaluation).
 
 Builds a small source of its own against those headers with phase clocks on
 (-DKUKA_PHASE_CLOCKS, -DKG_PHASE_CLOCKS), runs 16 dependent Euler steps of one

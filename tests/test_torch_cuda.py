@@ -45,7 +45,7 @@ def test_rbd_jac_kernel(dev):
     torch.testing.assert_close(qdd, ref_qdd, rtol=1e-4, atol=1e-5 * float(ref_qdd.abs().max()))
 
 
-@pytest.mark.parametrize("batch", [1, 37, 2 * 21 * 63, 8192])
+@pytest.mark.parametrize("batch", [1, 33, 37, 2 * 21 * 63, 8192])
 def test_qdd_kernel(dev, batch):
     rng = np.random.default_rng(batch)
     x, u = _f32(rng, (batch, 14), 0.5, dev), _f32(rng, (batch, 7), 2.0, dev)
@@ -150,9 +150,10 @@ def test_rollout_group_kernel_lanes(dev, A, M, nf, integrator):
 
 @pytest.mark.parametrize("integrator", [1, 2, 3])
 def test_rollout_without_feedback_is_the_chain_kernel(dev, integrator):
-    """With K = 0 and du = 0 a rollout lane is an open-loop chain: the
-    thread-group kernel and the one-thread chain kernel run the same dynamics
-    and agree to rounding (where nvcc fuses a multiply-add)."""
+    """With K = 0 and du = 0 a rollout lane is an open-loop chain: the rollout
+    kernel and the chain kernel run the same dynamics and agree to rounding
+    (both on the thread-group core since the chain moved onto it: the case
+    below holds them bit for bit)."""
     rng = np.random.default_rng(integrator)
     A, M, nf = 3, 2, 9
     x_sw, u, K, du, xp, alphas = _rollout_inputs(rng, A, M, nf, dev)
@@ -170,14 +171,38 @@ def test_rollout_without_feedback_is_the_chain_kernel(dev, integrator):
                                atol=2e-6 * max(float(x_chain.abs().max()), 1.0))
 
 
+@pytest.mark.parametrize("ahead", [True, False], ids=["ahead", "in_step"])
+@pytest.mark.parametrize("integrator", [1, 2, 3])
+def test_rollout_without_feedback_equals_the_chain_kernel_bit_for_bit(dev, integrator, ahead):
+    """Both kernels run the group core (kuka_soa_group.cuh), and with K = 0 and
+    du = 0 a rollout lane's control is u itself: the rollout kernel and the
+    chain kernel, on either schedule, compute the same states bit for bit."""
+    rng = np.random.default_rng(integrator)
+    A, M, nf = 3, 2, 9
+    x_sw, u, K, du, xp, alphas = _rollout_inputs(rng, A, M, nf, dev)
+    dt = 0.5 / 63
+    fused = cuda_rollout.make_kuka_fused_rollout(1, 0.0, integrator, dt, M * nf, M, A)
+    none = torch.zeros((M, nf), dtype=torch.bool, device=dev)
+    x_roll, _ = fused(x_sw, u, torch.zeros_like(K), torch.zeros_like(du), xp, alphas,
+                      skip_mask=none)
+    x0 = x_sw.reshape(A, M, nf, 14)[:, :, 0]
+    u_lanes = u.reshape(M, nf, 7).expand(A, M, nf, 7).contiguous()
+    x_chain = cuda_sim_chain.kuka_open_loop_cuda(x0, u_lanes, ee_type=1, gravity=0.0,
+                                                 integrator=integrator, dt=dt, ahead=ahead)
+    assert torch.equal(x_roll, x_chain)
+
+
 @pytest.mark.parametrize("integrator,lead,steps", [(1, (), 63), (1, (4,), 16), (2, (2, 3), 5),
-                                                   (3, (), 15), (1, (256, 4), 16), (1, (256,), 63)])
+                                                   (3, (), 15), (1, (256, 4), 16), (1, (256,), 63),
+                                                   (1, (33,), 16), (1, (1024,), 16)])
 def test_sim_chain_open_loop_kernel(dev, integrator, lead, steps):
     """Mode (a) against the step repeated in a Python loop (the plain
     version), on CPU tensors: rounding compounds over the steps (measured
     4.6e-6 at 63 Euler steps on an H100).  Also at the batched solve's
     initial rollout (B x 4 blocks of 16 steps) and the fleet step's warm
-    start (B chains of 63 steps), B = 256."""
+    start (B chains of 63 steps), B = 256; at 33 chains, which leave 31
+    lanes of the second block idle (they run copies of the last chain and
+    write nothing), and at the batched cold rollout's 1,024."""
     rng = np.random.default_rng(steps)
     dt = 0.5 / 63
     x0, u = _f32(rng, lead + (14,), 0.3, dev), _f32(rng, lead + (steps, 7), 1.0, dev)
@@ -215,6 +240,29 @@ def test_sim_chain_runner_kernel(dev, t0, t, feedback):
     torch.testing.assert_close(got_t.cpu(), ref_t, rtol=0, atol=1e-6)
     with pytest.raises(ValueError, match="CUDA"):      # a CPU tensor among CUDA ones
         chain.runner(plan[0], plan[1].cpu(), plan[2], clocks[0], dt, clocks[1], x, 10, feedback)
+
+
+@pytest.mark.parametrize("batch", [1, 256])
+def test_sim_chain_ahead_equals_in_step_bit_for_bit(dev, batch):
+    """The Euler chain with each step's mass matrix and factor made a step
+    ahead (what the wrappers launch) against the same chain on the in-step
+    schedule: the same expressions on the same operands, bit for bit, at the
+    warm start's T = 63 (B = 1 and the fleet's B = 256) and in runner mode."""
+    rng = np.random.default_rng(60 + batch)
+    dt = 0.5 / 63
+    x0, u = _f32(rng, (batch, 14), 0.3, dev), _f32(rng, (batch, 63, 7), 1.0, dev)
+    kw = dict(ee_type=1, gravity=0.0, integrator=1, dt=dt)
+    ahead = cuda_sim_chain.kuka_open_loop_cuda(x0, u, **kw)
+    in_step = cuda_sim_chain.kuka_open_loop_cuda(x0, u, ahead=False, **kw)
+    assert torch.equal(ahead, in_step)
+    plan = (_f32(rng, (64, 14), 0.3, dev), _f32(rng, (64, 7), 1.0, dev),
+            _f32(rng, (64, 7, 14), 0.05, dev))
+    args = (*plan, torch.tensor(0.25, device=dev), dt, torch.tensor(0.2617, device=dev), x0[0],
+            63)
+    kw = dict(ee_type=1, gravity=0.0, integrator=1, sim_dt=0.001)
+    for got, ref in zip(cuda_sim_chain.kuka_runner_cuda(*args, **kw),
+                        cuda_sim_chain.kuka_runner_cuda(*args, ahead=False, **kw)):
+        assert torch.equal(got, ref)
 
 
 @pytest.mark.parametrize("n,m,lanes,steps,rho_lane", [
