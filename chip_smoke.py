@@ -22,7 +22,8 @@ Phases (each prints one line; any failure exits non-zero):
                at T = 63 Euler, 4 x 16 Euler, T = 15 RK3, 256 chains of 63
                (the fleet warm start) and 1,024 of 16 (the batched cold
                rollout), and its runner mode, 10 substeps under a seeded
-               plan, each with its kernel alone, us a step and bound, and
+               plan, and the runtime phase's simulator tick (one 1 kHz
+               Euler step), each with its kernel alone, us a step and bound, and
                each Euler chain also on its in-step schedule, which it must
                equal bit for bit; the Riccati sweep at the Kuka's sizes, on blocks of
                96 steps, longer than its ring of staged steps, and at n = 4,
@@ -153,11 +154,31 @@ Phases (each prints one line; any failure exits non-zero):
                B = 2 batch from the solve phase's cold start on CPU tensors
                against the card, and on the fig-8 inputs beside a single
                solve's GPU-to-CPU gap.
+  8b. pickplace — the on-device pick-and-place loop of
+               examples/pick_n_place.py --device-loop (tasks/pick_and_place.py)
+               at the WAFR width: 8 waypoints of sample_waypoints(
+               PickAndPlaceConfig(), 8, default_rng(0)), the example's start,
+               1 kHz Euler plant, 10 ms period, 1,000 control steps of one
+               replay each (cold start included in its launch counts):
+               ms a step (host clock over the run; a 1-step call by CUDA
+               events), host syncs (0, and 0 in torch's sync-debug count),
+               the step's graph nodes, launches a step, waypoints settled
+               and their settle times; its first 20 replayed steps against
+               the same body run eagerly on the card.
+  8c. runtime — a two-bus round trip (fails loudly where the machine's
+               multicast loopback delivers nothing), then the four-node
+               stack of examples/pick_n_place.py (solver MPCLoopNode after its
+               warmup, runner, Kuka simulator at 1 kHz on the card, the
+               pick-and-place goal node), a thread each, for 10 s: solves,
+               solve ms, host reads a solve (1), captures after the warm-up
+               (0) while goals, cost sets and solver params change, runner
+               commands a second, overruns and gaps, waypoints settled, the
+               kernels launched.
   9. graphs  — every graph captured: seconds to capture and instantiate,
                nodes (WHILE bodies included) and the bytes its memory pool
                holds.
 Then one JSON line with every kernel's numbers, the card line, and last
-{"ok": true, "device": {...}}.  Takes 3 to 4 minutes on an H100.
+{"ok": true, "device": {...}}.  Takes about 5.5 minutes on an H100.
 `python3 chip_smoke.py --kernels-only` stops after phase 3 and prints no
 result line: a short run while working on a kernel.
 
@@ -230,6 +251,27 @@ FIG8_CPU_STEPS = 3
 FIG8_ERR_ATOL = 1e-4
 # forward-dynamics-family launches (qdd + chain) allowed per control step
 FIG8_QDD_FAMILY_MAX = 3
+# the pick-and-place device loop (examples/pick_n_place.py --device-loop,
+# tasks/pick_and_place.py): waypoints from sample_waypoints(PickAndPlaceConfig(),
+# 8, default_rng(0)), a 1 kHz Euler plant, a 10 ms control period, 1,000 steps;
+# its first PP_CHECK_STEPS replayed steps against the same body run eagerly on
+# the card: the same waypoint indices, accepts and ok flags, x within
+# PP_X_ATOL (the same kernels; cuBLAS may take another algorithm under
+# capture, and 20 closed-loop steps carry that rounding on)
+PP_WAYPOINTS = 8
+PP_SIM_HZ = 1000.0
+PP_PERIOD = 0.01
+PP_STEPS = 1000
+PP_CHECK_STEPS = 20
+PP_X_ATOL = 1e-4
+PP_TIMED = 50             # 1-step loop calls timed by CUDA events
+# the four-node stack of examples/pick_n_place.py on a loopback bus: solver
+# (MPCLoopNode), runner, simulator (1 kHz Euler, realtime, on the card) and
+# the pick-and-place goal node, each in its own thread for RT_SECONDS
+RT_PORT = 7795
+RT_SECONDS = 10.0
+RT_BUS_CHECK_S = 3.0
+RT_FK_ATOL = 1e-6          # the goal node's kinematics on the card against CPU tensors (m)
 # scenario batching: the batch the checks run at, the scenarios held against
 # their own launches and solves, the batches timed, replays a timing
 BATCH_CHECK = 256
@@ -362,6 +404,8 @@ PATH_KERNELS = {
     "constrained_wafr": ("rbd_jac", "rollout", "riccati", "sim_chain"),
     "constrained_batched": ("rbd_jac", "rollout", "riccati", "sim_chain"),
     "constrained_pendulum_loop": ("riccati",),
+    "pickplace": ("rbd_jac", "rollout", "riccati", "sim_chain"),
+    "runtime": ("rbd_jac", "rollout", "riccati", "sim_chain"),
 }
 # the path whose count is a kernel's `launches` in the kernels line: the fig-8
 # closed loop, and for the kernel it does not run, the block re-rollout loop
@@ -889,7 +933,8 @@ def kernel_phase(torch, np, dev):
     #    the fleet warm start's 256 chains of 63 and the batched cold rollout's
     #    1,024 chains of 16; runner mode: the closed loop's 10 substeps at 1 kHz
     #    under a seeded 64-knot plan (the fig8 phase repeats it from the settled
-    #    fig-8 state).  The plain version is the step repeated in a Python loop.
+    #    fig-8 state); the runtime phase's simulator tick, one 1 kHz Euler step
+    #    from one state.  The plain version is the step repeated in a Python loop.
     #    The Euler chain runs a step ahead; it must equal its in-step schedule
     #    bit for bit, and both are timed.
     chain = dict(name="sim_chain", route="cuda",
@@ -902,7 +947,8 @@ def kernel_phase(torch, np, dev):
             ("warm start", 1, (), N - 1, 0.0), ("cold rollout", 1, (M,), N // M, 0.0),
             ("rk3", 3, (), 15, 0.0), ("cold rollout gravity", 1, (M,), N // M, GRAVITY),
             ("fleet warm start", 1, (256,), N - 1, 0.0),
-            ("batched cold rollout", 1, (1024,), N // M, 0.0), ("runner", 1, None, 10, 0.0)):
+            ("batched cold rollout", 1, (1024,), N // M, 0.0), ("runner", 1, None, 10, 0.0),
+            ("simulator tick", 1, (), 1, 0.0)):
         if lead is None:
             sim_dt = 1.0 / FIG8_SIM_HZ
             step = cuda_rollout._kuka_step(1, grav, integ, sim_dt)
@@ -914,8 +960,9 @@ def kernel_phase(torch, np, dev):
         else:
             x0 = f32(rng.normal(0, 0.3, lead + (nx,)))
             u = f32(rng.normal(0, 1.0, lead + (T, nu)))
-            kw = dict(ee_type=1, gravity=grav, integrator=integ, dt=dt)
-            step = cuda_rollout._kuka_step(1, grav, integ, dt)
+            case_dt = 1.0 / PP_SIM_HZ if label == "simulator tick" else dt
+            kw = dict(ee_type=1, gravity=grav, integrator=integ, dt=case_dt)
+            step = cuda_rollout._kuka_step(1, grav, integ, case_dt)
             call = lambda ahead=True: cuda_sim_chain.kuka_open_loop_cuda(x0, u, ahead=ahead, **kw)
             plain = lambda: cuda_sim_chain.open_loop_plain(step, x0, u)
             inputs = (x0, u)
@@ -2577,6 +2624,279 @@ def batched_phase(torch, np, dev, cold, canon, fleet, kernels, card):
     return path_counts, per_b, {"batched solver": solve6.solver.graphs}
 
 
+def pp_x_init(np):
+    """The start of examples/pick_n_place.py: q = (0, pi/4, 0, -pi/4, 0, pi/4, 0), at rest."""
+    x = np.zeros(14, np.float32)
+    x[1], x[3], x[5] = np.pi / 4, -np.pi / 4, np.pi / 4
+    return x
+
+
+def pickplace_phase(torch, np, dev, card):
+    """The on-device pick-and-place loop (examples/pick_n_place.py
+    --device-loop) at the WAFR width: cold start, PP_STEPS control steps of
+    one replay each with the launch counters, its first PP_CHECK_STEPS
+    against the same body run eagerly on the card, 1-step calls timed."""
+    from parallel_ddp_tpu_torch.mpc.driver import MPCConfig, MPCController, MPCState
+    from parallel_ddp_tpu_torch.presets import kuka_ee
+    from parallel_ddp_tpu_torch.tasks.pick_and_place import (PickAndPlaceConfig, default_weights,
+                                                             make_pick_place_device_loop,
+                                                             sample_waypoints)
+
+    t_phase = time.perf_counter()
+    prob = kuka_ee(mpc_mode=True)
+    cfg = dataclasses.replace(prob.cfg, pallas_riccati=True)
+    ctrl = MPCController(prob.plant, prob.cost, cfg, MPCConfig(max_iters_per_solve=N_ITERS))
+    task = PickAndPlaceConfig()
+    wps = sample_waypoints(task, PP_WAYPOINTS, np.random.default_rng(0))
+    run = make_pick_place_device_loop(ctrl, wps, task, sim_rate_hz=PP_SIM_HZ,
+                                      control_period_s=PP_PERIOD, sim_integrator=1)
+    x_init = torch.as_tensor(pp_x_init(np), device=dev)
+    goal0 = {"ee_goal": torch.as_tensor(np.concatenate([wps[0], np.zeros(3)]).astype(np.float32),
+                                        device=dev),
+             "x_target": torch.zeros(14, device=dev)}
+    w = default_weights()
+    # the first calls capture the cold solve's and the control step's graphs
+    run(ctrl.init_state(x_init, t0=0.0, goal=goal0, weights=w), x_init, 0.0, 1)
+    torch.cuda.synchronize()
+
+    reset_counts()
+    st0 = ctrl.init_state(x_init, t0=0.0, goal=goal0, weights=w)
+    start = MPCState(*(a.clone() for a in st0))
+    before = read_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = run(st0, x_init, 0.0, PP_STEPS)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / PP_STEPS
+    counts = read_counts()                 # this path's own: cold start + the steps
+    per_step = {k: (counts[k] - before[k]) / PP_STEPS for k in counts}
+    stats = run.graphs.stats()[0]
+
+    wi = res.wp_idx.cpu().numpy()
+    done = int(res.waypoints_done)
+    settle = [float(np.sum(wi == k)) * PP_PERIOD for k in range(done)]
+    xs = res.x.cpu().numpy()
+    # 0 host reads a step: the loop's own count, and torch's sync-debug count
+    # of a 10-step call from the start
+    _, torch_syncs = count_syncs(torch, lambda: run(start, x_init, 0.0, 10))
+    one_step = event_times(lambda: run(start, x_init, 0.0, 1), PP_TIMED)
+    print(f"pickplace: {PP_STEPS} control steps ({PP_STEPS * PP_PERIOD:g} s, 1 kHz Euler plant, "
+          f"{PP_WAYPOINTS} waypoints): {wall_ms:.3f} ms per control step (host clock around the "
+          f"synced run); a 1-step loop call {float(np.median(one_step)):.3f} ms median of "
+          f"{PP_TIMED} (CUDA events; min {min(one_step):.3f}, max {max(one_step):.3f}) on {card}",
+          flush=True)
+    print(f"pickplace: waypoints settled {done} of {PP_WAYPOINTS}; settle times "
+          f"{[round(v, 3) for v in settle]} s, median "
+          f"{float(np.median(settle)) if settle else float('nan'):.3f} s; final EE error "
+          f"{float(res.e_norm[-1]):.4f} m; ok rate {float(res.ok.float().mean()):.3f}, accept "
+          f"rate {float(res.accepted.float().mean()):.3f}", flush=True)
+    print(f"pickplace: host syncs {res.host_syncs} (torch sync-debug count of a 10-step call "
+          f"{torch_syncs}); the step's graph {stats.nodes} nodes (WHILE bodies "
+          f"{list(stats.body_nodes)}), captured in {stats.seconds:.3f} s, pool {stats.pool_bytes} "
+          f"B; kernel launches during cold start + steps: {json.dumps(counts)}; per control step: "
+          f"{json.dumps(per_step)}", flush=True)
+    if not np.all(np.isfinite(xs)):
+        fail("pickplace: non-finite plant state")
+    if res.host_syncs or torch_syncs:
+        fail(f"pickplace: the replayed loop synchronised with the host ({res.host_syncs} reads, "
+             f"sync-debug count {torch_syncs})")
+    if done < 1:
+        fail(f"pickplace: no waypoint settled in {PP_STEPS} control steps")
+    require_launched("pickplace", counts)
+
+    # the first PP_CHECK_STEPS replayed steps against the same body run
+    # eagerly on the card (host loop, host reads for the solver's tests)
+    eager = run(start, x_init, 0.0, PP_CHECK_STEPS, replay=False)
+    n = PP_CHECK_STEPS
+    same = {name: bool(torch.equal(getattr(res, name)[:n], getattr(eager, name)))
+            for name in ("wp_idx", "accepted", "ok")}
+    x_gap = float((res.x[:n] - eager.x).abs().max())
+    j_gap = float(((res.J[:n] - eager.J).abs() / eager.J.abs()).max())
+    print(f"pickplace: the first {n} replayed steps against eager runs of the body on the card: "
+          f"equal {same}; max |x gap| {x_gap:.3e} (limit {PP_X_ATOL:g}); max relative J gap "
+          f"{j_gap:.3e}; eager host reads {eager.host_syncs}", flush=True)
+    if not all(same.values()) or not x_gap <= PP_X_ATOL:
+        fail(f"pickplace: replayed and eager control steps disagree ({same}, x gap {x_gap:.3e})")
+    print(f"pickplace: phase took {time.perf_counter() - t_phase:.1f} s", flush=True)
+    summary = dict(ms_step=wall_ms, ms_one_step=float(np.median(one_step)), done=done,
+                   settle=settle, nodes=stats.nodes)
+    return {"pickplace": counts}, summary, {"pick-and-place loop": run.graphs}
+
+
+def card_ee_pos(torch, plant, dev):
+    """q (numpy) -> the EE position (numpy): one replay of a CUDA graph of the
+    plant's kinematics on a stream of its own, through pinned buffers (the
+    JAX example hands its goal node `jax.jit(plant.ee_pos)`).  The goal node
+    calls it for every status: as PyTorch ops on CPU tensors it would
+    dispatch ~40 ops a call, each a turn of the interpreter lock that the
+    other nodes' threads wait for (scripts/torch_runtime_contention.py)."""
+    from parallel_ddp_tpu_torch import graphs
+
+    stream = torch.cuda.Stream(dev)
+    q_host, out_host = torch.zeros(7, pin_memory=True), torch.zeros(3, pin_memory=True)
+    with torch.cuda.stream(stream):
+        cap = graphs.Captured(lambda q: plant.ee_pos(q)[:3], (torch.zeros(7, device=dev),),
+                              "goal node ee_pos")
+    torch.cuda.synchronize()
+
+    def ee_pos(q):
+        with torch.cuda.stream(stream):
+            q_host.numpy()[:] = q
+            cap.args[0].copy_(q_host, non_blocking=True)
+            cap.replay()
+            out_host.copy_(cap.out, non_blocking=True)
+            stream.synchronize()
+        return out_host.numpy().copy()
+
+    return ee_pos
+
+
+def bus_round_trip(PubSub, port):
+    """Publish on one bus until another on the same group and port receives
+    it; fail loudly if the machine cannot (no multicast loopback)."""
+    try:
+        a, b = PubSub(port=port), PubSub(port=port)
+    except RuntimeError as e:
+        fail(f"runtime: this machine cannot create the multicast bus: {e}")
+    try:
+        b.subscribe("PDDP_BUS_CHECK")
+        deadline, got, t0 = time.time() + RT_BUS_CHECK_S, None, time.perf_counter()
+        while time.time() < deadline and got is None:
+            a.publish("PDDP_BUS_CHECK", b"round trip")
+            time.sleep(0.01)
+            got = b.poll("PDDP_BUS_CHECK")
+        if got is None or got[0] != b"round trip":
+            fail(f"runtime: two buses on 239.255.76.67:{port} exchanged nothing in "
+                 f"{RT_BUS_CHECK_S:g} s (multicast loopback does not deliver on this machine)")
+        return time.perf_counter() - t0
+    finally:
+        a.close()
+        b.close()
+
+
+def runtime_phase(torch, np, dev, card):
+    """The four-node stack of examples/pick_n_place.py on a loopback bus:
+    solver, runner, simulator (on the card) and the pick-and-place goal node,
+    one thread each, for RT_SECONDS, with the launch counters."""
+    import threading
+
+    from parallel_ddp_tpu_torch.mpc.driver import MPCConfig, MPCController
+    from parallel_ddp_tpu_torch.presets import kuka_ee
+    from parallel_ddp_tpu_torch.runtime import messages as msg
+    from parallel_ddp_tpu_torch.runtime import pubsub
+    from parallel_ddp_tpu_torch.runtime.nodes import (MPCLoopNode, SimulatorNode, TrajRunnerNode,
+                                                      ee_goal_to_pytree)
+    from parallel_ddp_tpu_torch.tasks.pick_and_place import (PickAndPlaceConfig,
+                                                             PickAndPlaceGoalNode,
+                                                             default_weights)
+
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    lib_path = pubsub.build()
+    build_s = time.perf_counter() - t0
+    trip_s = bus_round_trip(pubsub.PubSub, RT_PORT)
+    print(f"runtime: bus library {lib_path.parent.name}/{lib_path.name} built from "
+          f"native/ddprt.cpp in {build_s:.2f} s; a two-bus round trip on port {RT_PORT} took "
+          f"{trip_s * 1e3:.1f} ms", flush=True)
+
+    class CountingBus(pubsub.PubSub):
+        """The goal node's bus: counts what it publishes, per channel."""
+
+        def __init__(self, **kw):
+            super().__init__(**kw)
+            self.sent = {}
+
+        def publish(self, channel, payload):
+            super().publish(channel, payload)
+            self.sent[channel] = self.sent.get(channel, 0) + 1
+
+    prob = kuka_ee(mpc_mode=True)
+    cfg = dataclasses.replace(prob.cfg, pallas_riccati=True)
+    ctrl = MPCController(prob.plant, prob.cost, cfg, MPCConfig(max_iters_per_solve=N_ITERS))
+    x_init = pp_x_init(np)
+    ee_pos = card_ee_pos(torch, prob.plant, dev)
+    q0 = x_init[:7]
+    fk_gap = float(np.abs(ee_pos(q0) - prob.plant.ee_pos(torch.as_tensor(q0))[:3].numpy()).max())
+    if not fk_gap <= RT_FK_ATOL:
+        fail(f"runtime: the goal node's kinematics on the card part from the CPU's by {fk_gap:.3e} m")
+    buses = {name: pubsub.PubSub(port=RT_PORT) for name in ("solver", "runner", "sim")}
+    buses["goal"] = CountingBus(port=RT_PORT)
+    goal_node = PickAndPlaceGoalNode(buses["goal"], ee_pos, PickAndPlaceConfig(),
+                                     rng=np.random.default_rng(0))
+    goal0 = msg.Goal(msg.Goal.MODE_EE_TWIST,
+                     np.concatenate([goal_node.goal, np.zeros(3)]).astype(np.float32))
+    solver = MPCLoopNode(ctrl, buses["solver"], ee_goal_to_pytree, goal0,
+                         weights=default_weights(), device=dev)
+    t0 = time.perf_counter()
+    solver.warmup(x_init)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    captured = solver.captures()
+    runner = TrajRunnerNode(14, 7, buses["runner"])
+    sim = SimulatorNode(prob.plant, buses["sim"], x_init, rate_hz=PP_SIM_HZ, integrator=1,
+                        realtime=True, device=dev)
+    torch.cuda.synchronize()
+    reset_counts()
+    stop = threading.Event()
+    threads = [threading.Thread(target=node.run, args=(stop,), daemon=True)
+               for node in (solver, runner, sim, goal_node)]
+    try:
+        for th in threads:
+            th.start()
+        time.sleep(RT_SECONDS)
+    finally:
+        stop.set()
+        for th in threads:
+            th.join(timeout=10.0)
+        for b in buses.values():
+            b.close()
+    alive = [i for i, th in enumerate(threads) if th.is_alive()]
+    if alive:
+        fail(f"runtime: node threads {alive} did not stop")
+    torch.cuda.synchronize()
+    counts = read_counts()
+
+    if solver.solve_count < 1 or runner.command_count < 2:
+        fail(f"runtime: the stack did not close the loop ({solver.solve_count} solves, "
+             f"{runner.command_count} commands)")
+    solve_ms = np.asarray([ms for _, ms, _ in solver.solve_trace])
+    iters = np.asarray([it for _, _, it in solver.solve_trace])
+    stamps = np.asarray(runner.command_stamps)
+    gaps_ms = np.diff(stamps) * 1e3
+    span = stamps[-1] - stamps[0] if stamps.size > 1 else float("nan")
+    settles = goal_node.settle_times()
+    new_captures = solver.captures() - captured
+    reads = solver.host_reads / max(solver.solve_count, 1)
+    sent = buses["goal"].sent
+    print(f"runtime: {RT_SECONDS:g} s of the four-node stack after a {warm_s:.2f} s warm-up "
+          f"({captured} graphs captured): {solver.solve_count} solves ({solver.fail_count} "
+          f"failed), solve ms median {float(np.median(solve_ms)):.3f}, p99 "
+          f"{float(np.percentile(solve_ms, 99)):.3f}, max {float(solve_ms.max()):.3f} "
+          f"(host clock around step + read), iterations median {float(np.median(iters)):g}; "
+          f"host reads per solve {reads:.3f}; captures after warm-up {new_captures} while the "
+          f"goal node published {json.dumps(sent)} on {card}", flush=True)
+    print(f"runtime: runner {runner.command_count} commands, "
+          f"{(stamps.size - 1) / span:.1f} per second, {runner.overrun_count} overruns, gap "
+          f"between commands median {float(np.median(gaps_ms)):.3f} ms, p99 "
+          f"{float(np.percentile(gaps_ms, 99)):.3f} ms, max {float(gaps_ms.max()):.3f} ms; "
+          f"plant {sim.step_count} steps at t = {sim.t:.3f} s; waypoints settled {len(settles)} "
+          f"({[round(v, 3) for v in settles]} s of plant time); kernel launches on the path: "
+          f"{json.dumps(counts)}", flush=True)
+    if solver.host_reads != solver.solve_count:
+        fail(f"runtime: {solver.host_reads} host reads for {solver.solve_count} solves (one each)")
+    if new_captures:
+        fail(f"runtime: {new_captures} graphs captured after the warm-up")
+    if not settles or not sent.get(pubsub.Channels.GOAL):
+        fail("runtime: no waypoint settled (the goal, cost set and solver params never changed)")
+    if not np.all(np.isfinite(sim.x)):
+        fail("runtime: non-finite plant state")
+    require_launched("runtime", counts)
+    print(f"runtime: phase took {time.perf_counter() - t_phase:.1f} s", flush=True)
+    summary = dict(solve_ms=float(np.median(solve_ms)), settled=len(settles),
+                   commands_per_s=(stamps.size - 1) / span)
+    return {"runtime": counts}, summary, {"runtime solver node": ctrl.graphs}
+
+
 def main():
     t_start = time.perf_counter()
     try:
@@ -2632,7 +2952,10 @@ def main():
         torch, np, dev, card)
     batched_launches, per_b, batched_caches = batched_phase(torch, np, dev, cold, canon, fleet,
                                                             kernels, card)
-    caches = {"WAFR solver": solver.graphs, **al_caches, **fig8_caches, **batched_caches}
+    pp_launches, pp_summary, pp_caches = pickplace_phase(torch, np, dev, card)
+    rt_launches, rt_summary, rt_caches = runtime_phase(torch, np, dev, card)
+    caches = {"WAFR solver": solver.graphs, **al_caches, **fig8_caches, **batched_caches,
+              **pp_caches, **rt_caches}
     chain = next(r for r in kernels if r["name"] == "sim_chain")
     chain["max_abs_err"] = max(chain["max_abs_err"], runner.pop("max_abs_err"))
     chain["ok"] = chain["ok"] and runner.pop("ok")
@@ -2662,7 +2985,7 @@ def main():
     # closed loop where that runs it); launches_<path>: every path's own count
     by_path = {"wafr_solve": launches, **plant_launches, **urdf_launches, **al_launches,
                **fig8_launches,
-               "wafr_batched": batched_launches}
+               "wafr_batched": batched_launches, **pp_launches, **rt_launches}
     line = {"kernels": [
         {k: r[k] for k in ("name", "route", "source", "replaces")}
         | {"launches": by_path[LAUNCHES_FROM[r["name"]]][r["name"]],
@@ -2695,6 +3018,10 @@ def main():
     print("batched: " + "; ".join(f"B={B} {v['ms']:.3f} ms a {N_ITERS}-iteration batched solve, "
                                   f"{v['solves_per_s']:.0f} solves/s" for B, v in per_b.items())
           + f" on {card}", flush=True)
+    print(f"pickplace: {pp_summary['ms_step']:.3f} ms per control step, "
+          f"{pp_summary['done']} of {PP_WAYPOINTS} waypoints settled; runtime: solve median "
+          f"{rt_summary['solve_ms']:.3f} ms, {rt_summary['commands_per_s']:.1f} commands/s, "
+          f"{rt_summary['settled']} waypoints settled on {card}", flush=True)
     print(f"total: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps(line), flush=True)
     print(f"card: {card}", flush=True)

@@ -898,3 +898,72 @@ def test_al_mpc_period_is_one_replay_with_no_host_read(dev):
     cpu = ctrl.step(st_cpu, lam_cpu, torch.zeros(2), 0.02, goal_cpu)
     assert bool(info.accepted) == bool(cpu[2].accepted)
     torch.testing.assert_close(info.J.cpu(), cpu[2].J, rtol=1e-3, atol=0)
+
+
+def test_pick_place_loop_replayed_matches_eager(dev):
+    """Five control steps of the pick-and-place device loop replayed on the
+    card (one graph a step, the waypoint index on the device, no host read)
+    against the same body run eagerly on the card: the same waypoint
+    indices, accepts and ok flags, and the same states but for cuBLAS
+    choosing another algorithm under capture (rtol 1e-5)."""
+    from parallel_ddp_tpu_torch.mpc.driver import MPCConfig, MPCController, MPCState
+    from parallel_ddp_tpu_torch.tasks.pick_and_place import (PickAndPlaceConfig,
+                                                             make_pick_place_device_loop)
+
+    prob, cfg = _small_problem()
+    ctrl = MPCController(prob.plant, prob.cost, cfg, MPCConfig(max_iters_per_solve=2))
+    wps = np.asarray([[0.1, 0.1, 1.2], [0.1, -0.1, 1.2]], np.float32)
+    run = make_pick_place_device_loop(ctrl, wps, PickAndPlaceConfig(e_norm_lim=0.35,
+                                                                    v_norm_lim=2.0),
+                                      sim_rate_hz=200.0, control_period_s=0.05)
+    z = lambda *shape: torch.zeros(shape, device=dev)
+    st = MPCState(z(16, 14), z(16, 7), z(16, 7, 14), z(16, 14, 14), z(16, 14), z(16, 14),
+                  z(), torch.zeros((), dtype=torch.int32, device=dev))
+    x0 = z(14)
+    graphed = run(st, x0, 0.0, 5)
+    eager = run(st, x0, 0.0, 5, replay=False)
+    assert graphed.host_syncs == 0 and eager.host_syncs > 0 and len(run.graphs) == 1
+    assert int(graphed.waypoints_done) == int(eager.waypoints_done) == 2
+    for name in ("wp_idx", "accepted", "ok"):
+        assert torch.equal(getattr(graphed, name), getattr(eager, name)), name
+    for name in ("x", "e_norm", "v_norm", "J"):
+        torch.testing.assert_close(getattr(graphed, name), getattr(eager, name), rtol=1e-5,
+                                   atol=1e-6, msg=name)
+
+
+def test_mpc_loop_node_one_read_and_no_capture_after_warmup(dev):
+    """The solver node on the card: `warmup` captures the cold start's solve
+    and the MPC step; solves after a new goal, a new cost set, a shift
+    toggle and a new iteration limit replay them (no new capture), each
+    with one read to the host."""
+    from parallel_ddp_tpu_torch.config import CostWeights
+    from parallel_ddp_tpu_torch.mpc.driver import MPCConfig, MPCController
+    from parallel_ddp_tpu_torch.runtime import messages as msg
+    from parallel_ddp_tpu_torch.runtime import nodes
+
+    class Bus:
+        def subscribe(self, channel):
+            pass
+
+    prob, cfg = _small_problem()
+    ctrl = MPCController(prob.plant, prob.cost, cfg, MPCConfig(max_iters_per_solve=3))
+    goal = msg.Goal(2, np.asarray([0.5, 0.5, 0.1, 0, 0, 0], np.float32))
+    node = nodes.MPCLoopNode(ctrl, Bus(), nodes.ee_goal_to_pytree, goal, device=dev)
+    x0 = np.zeros(14, np.float32)
+    node.state = node.warmup(x0)
+    captured = node.captures()
+    assert captured == 2
+    changes = [
+        lambda: setattr(node, "goal", msg.Goal(2, np.asarray([0.4, -0.5, 0.1, 0, 0, 0],
+                                                              np.float32))),
+        lambda: setattr(node, "weights", CostWeights(q_ee1=75.0, qf_ee1=500.0)),
+        lambda: setattr(node, "solver_params", msg.SolverParams(1, 10.0, False, 1)),
+        lambda: setattr(node, "solver_params", msg.SolverParams(3, 50.0, False, 0)),
+    ]
+    for k, change in enumerate(changes):
+        change()
+        traj = node.solve(msg.Status(0.01 * (k + 1), x0[:7], x0[7:]))
+        assert traj.x.shape == (16, 14) and np.isfinite(traj.x).all()
+    assert node.captures() == captured
+    assert node.host_reads == node.solve_count == len(changes)
+    assert node.solve_trace[2][2] == 1

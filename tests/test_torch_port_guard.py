@@ -6,6 +6,7 @@ An `ast` check, not `sys.modules`: a site customisation may import jax at
 interpreter start-up."""
 
 import ast
+import io
 import os
 import pathlib
 import re
@@ -49,7 +50,9 @@ def test_port_has_modules():
                      "mpc/simulator.py", "ops/cuda_sim_chain.py", "device.py", "graphs.py",
                      "models/pendulum.py", "models/cartpole.py", "models/quadrotor.py",
                      "costs/joint.py", "constraints.py", "models/kuka/rbd.py",
-                     "models/urdf.py"):
+                     "models/urdf.py", "runtime/messages.py", "runtime/lcm_wire.py",
+                     "runtime/pubsub.py", "runtime/nodes.py", "tasks/pick_and_place.py",
+                     "utils/checkpoint.py", "utils/profiling.py"):
         assert expected in names
 
 
@@ -160,7 +163,9 @@ def _entry_points():
     from parallel_ddp_tpu_torch.mpc.driver import MPCConfig, MPCController
     from parallel_ddp_tpu_torch.mpc.simulator import PlantSimulator
     from parallel_ddp_tpu_torch.presets import ee_goal, kuka_ee
+    from parallel_ddp_tpu_torch.runtime import messages, nodes
     from parallel_ddp_tpu_torch.solver import make_ilqr_solver
+    from parallel_ddp_tpu_torch.utils import checkpoint
 
     prob = kuka_ee(num_time_steps=16, m_blocks=2, num_alpha=4)
     cfg = dataclasses.replace(prob.cfg, pallas_riccati=True, max_iter=1)
@@ -170,6 +175,20 @@ def _entry_points():
     al_ctrl = ALMPCController(prob.plant, prob.cost, cfg, MPCConfig(max_iters_per_solve=1), con)
     x = np.zeros(14, np.float32)
     goal_kw = dict(xyz=[0.3, -0.3, 0.9])
+
+    def ckpt():
+        """A checkpoint file's bytes (np.load takes a file object)."""
+        f = io.BytesIO()
+        np.savez(f, **{k: np.zeros((2, 3), np.float32) for k in ("x", "u", "K", "P", "p", "d")},
+                 t0=np.float32(0.0), fails=np.int32(0))
+        f.seek(0)
+        return f
+
+    class Bus:
+        def subscribe(self, channel):
+            pass
+
+    goal_msg = messages.Goal(0, np.zeros(6, np.float32))
     return {
         "ee_goal": lambda **kw: ee_goal(**goal_kw, **kw)["ee_goal"],
         "init_state": lambda **kw: ctrl.init_state(
@@ -185,11 +204,17 @@ def _entry_points():
         "al_init_state": lambda **kw: al_ctrl.init_state(
             x, goal=ee_goal(**goal_kw, **kw), warmup_iters=1, **kw)[0].x,
         "al_zero_lam": lambda **kw: al_ctrl.zero_lam(**kw),
+        "load_mpc_state": lambda **kw: checkpoint.load_mpc_state(ckpt(), **kw).x,
+        "load_warm_start": lambda **kw: checkpoint.load_warm_start(ckpt(), **kw)["x"],
+        "mpc_loop_node": lambda **kw: nodes.MPCLoopNode(
+            ctrl, Bus(), nodes.ee_goal_to_pytree, goal_msg, **kw)._goal_pytree()["ee_goal"],
+        "simulator_node": lambda **kw: nodes.SimulatorNode(prob.plant, Bus(), x, **kw).sim.device,
     }
 
 
 @pytest.mark.parametrize("name", ["ee_goal", "init_state", "solver", "plant_simulator",
-                                  "solve_al", "al_init_state", "al_zero_lam"])
+                                  "solve_al", "al_init_state", "al_zero_lam", "load_mpc_state",
+                                  "load_warm_start", "mpc_loop_node", "simulator_node"])
 def test_entry_points_default_to_the_card(name):
     """Given lists or numpy arrays and no `device`, an entry point builds on
     the card, or raises where there is none: it never falls back to the CPU.
