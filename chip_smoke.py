@@ -84,6 +84,24 @@ Phases (each prints one line; any failure exits non-zero):
                solve by the plants phase's rule, then a warm 6-iteration
                re-solve timed (median of 20) with its graph's nodes and
                capture seconds, beside the kernel-backed Kuka's.
+  5b''. assoc — the exact log-depth backward pass (`SolverConfig.
+               bp_assoc_scan`, parallel/backward.py `_assoc_attempt` on
+               parallel/scan.py): the WAFR solve with it (pallas_riccati
+               and state_reg off), cold + 3 warm along the figure-8, one
+               replay each (launch counts zeroed just before: the Jacobian,
+               rollout and chain kernels must launch, the Riccati kernel
+               must not; 0 host reads), the cold solve against CPU tensors
+               by the plants phase's rule and against the serial pass at
+               one block on the card (no parting before the serial trace's
+               first near tie; the J ratio printed), its warm re-solve
+               timed (median of 20) with its body's nodes; the pass alone
+               at (14, 7) on the cold start's derivative data (N = 64) and
+               that data tiled to N = 256 and 1024 against the serial pass
+               (max abs and relative error of P, K, du), and one attempt of
+               the exact pass, the PyTorch block sweep (4 blocks) and
+               riccati.cu (4 lanes) timed side by side as graph replays.
+               `python3 chip_smoke.py --assoc-only` runs this phase alone
+               after the build and prints no result line.
   5c. constraints — box constraints (`parallel_ddp_tpu_torch/
                constraints.py`) at the WAFR width, each path with its own
                launch counts: the torque-limited WAFR Kuka EE solve of
@@ -381,6 +399,16 @@ AL_PEND_BARS = dict(q_err=0.05, qd=0.1, head=AL_PEND_U_MAX * 1.05, tail=AL_PEND_
 URDF_GOAL = [0.3, -0.5, 0.4]
 URDF_SAMPLES = 63
 URDF_MAX_DEFECT = 0.1          # tests/test_urdf.py's bar for a URDF arm's solve
+# the exact log-depth backward pass (bp_assoc_scan, parallel/backward.py
+# `_assoc_attempt` on parallel/scan.py): the WAFR solve with it, held to the
+# CPU by the plants phase's rule and to the serial pass at one block (both
+# exact: the same decisions up to the serial trace's first near tie); the
+# pass alone at these horizons (64: the cold solve's derivative data; longer:
+# that data tiled along time) against the serial pass, and one attempt of
+# each strategy timed side by side (CUDA events around graph replays)
+ASSOC_HORIZONS = (64, 256, 1024)
+ASSOC_TIMED = 20
+ASSOC_BLOCKS = 4               # the block sweep's and riccati.cu's lanes
 # the kernels against the independent spatial-algebra core (KukaRBD) on the
 # card: |kernel - rbd| <= rtol |rbd| + atol, the JAX package's own bounds of
 # its scalar-channel core against that core (tests/test_soa.py:35 for qdd,
@@ -401,6 +429,7 @@ PATH_KERNELS = {
     "plants_kuka_joint_fd": ("rollout", "riccati", "qdd", "sim_chain"),
     "plants_pendulum_loop": ("riccati",),
     "urdf_iiwa14": ("riccati",),
+    "wafr_assoc": ("rbd_jac", "rollout", "sim_chain"),
     "constrained_wafr": ("rbd_jac", "rollout", "riccati", "sim_chain"),
     "constrained_batched": ("rbd_jac", "rollout", "riccati", "sim_chain"),
     "constrained_pendulum_loop": ("riccati",),
@@ -1679,6 +1708,190 @@ def urdf_phase(torch, np, dev, card, kuka_warm_ms):
                          cold_capture_s=cold.seconds, launches=per_solve)
 
 
+def graph_ms(torch, fn, reps):
+    """(ms a replay, nodes) of fn captured alone in a CUDA graph (no
+    counting node beside a kernel), by CUDA events around `reps` replays."""
+    from parallel_ddp_tpu_torch import graphs
+    from parallel_ddp_tpu_torch.ops import build
+
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with build.uncounted(), torch.cuda.graph(graph):
+        fn()
+    nodes = graphs._nodes(graph.raw_cuda_graph())
+    graph.instantiate()
+    return cuda_ms(graph.replay, reps, warmup=2), nodes
+
+
+def assoc_phase(torch, np, dev, card, kuka_warm_ms=None):
+    """The exact log-depth backward pass (bp_assoc_scan) on the card: the
+    WAFR solve with it (cold + N_WARM warm re-solves, each one replay, the
+    launch counters zeroed just before: rbd_jac, rollout and sim_chain must
+    launch and riccati must not), held to the same solve on CPU tensors and
+    to the serial pass at one block on the card; the warm re-solve timed;
+    the pass alone against the serial pass at ASSOC_HORIZONS, and one
+    attempt of the exact pass, the torch block sweep and riccati.cu timed
+    side by side."""
+    from parallel_ddp_tpu_torch.config import weights_tensor
+    from parallel_ddp_tpu_torch.parallel.backward import (_assoc_attempt, _block_attempt,
+                                                          make_riccati_step)
+    from parallel_ddp_tpu_torch.presets import ee_goal, figure8_goal, kuka_ee
+    from parallel_ddp_tpu_torch.solver import _derivatives, make_ilqr_solver, open_loop_rollout
+
+    t_phase = time.perf_counter()
+    prob = kuka_ee()
+    cfg = dataclasses.replace(prob.cfg, max_iter=N_ITERS, tol_cost=0.0, pallas_riccati=False,
+                              state_reg=False, bp_assoc_scan=True)
+    N = cfg.num_time_steps
+    # the solve phase's cold start and goals
+    x_start = (np.random.default_rng(0).standard_normal(14) * 0.3).astype(np.float32)
+    x0 = np.broadcast_to(x_start, (N, 14)).copy()
+    u0 = np.zeros((N, 7), np.float32)
+    goals = [[0.0, -0.55, 0.35]] + [list(figure8_goal(MPC_DT * i)[0]) for i in range(1, N_WARM + 1)]
+    goals_dev = [ee_goal(gl, device=dev) for gl in goals]
+    x0_dev, u0_dev = torch.as_tensor(x0, device=dev), torch.as_tensor(u0, device=dev)
+    solver = make_ilqr_solver(prob.plant, prob.cost, cfg)
+
+    def warm(prev, goal):
+        return solver(prev.x, prev.u, goal, P0=prev.P, p0=prev.p, d0=prev.d)
+
+    def track():
+        outs = [solver(x0_dev, u0_dev, goals_dev[0], initial_rollout=True)]
+        for goal in goals_dev[1:]:
+            outs.append(warm(outs[-1], goal))
+        return outs
+
+    # 1. the solve: both graphs captured first, then the counted run
+    t0 = time.perf_counter()
+    warm(solver(x0_dev, u0_dev, goals_dev[0], initial_rollout=True), goals_dev[1])
+    torch.cuda.synchronize()
+    capture_s = time.perf_counter() - t0
+    reset_counts()
+    outs, syncs = count_syncs(torch, track)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    print(f"assoc: wafr_assoc: kernel launches during the cold + {N_WARM} warm solves (graph "
+          f"replays, counted on the device): {json.dumps(counts)}; both graphs captured in "
+          f"{capture_s:.1f} s; host reads {solver.host_syncs} (torch sync-debug count {syncs})",
+          flush=True)
+    require_launched("wafr_assoc", counts)
+    if counts["riccati"]:
+        fail(f"wafr_assoc: the Riccati kernel ran on the exact pass's path ({counts})")
+    if solver.host_syncs or syncs:
+        fail(f"wafr_assoc: the replayed solves read the host ({solver.host_syncs} reads, torch "
+             f"sync-debug count {syncs})")
+    for i, out in enumerate(outs):
+        it = int(out.iters)
+        jt = out.J_trace.cpu().numpy()[: it + 1]
+        kind = "cold" if i == 0 else f"warm{i}"
+        print(f"assoc: {kind}: J {np.array2string(jt, precision=4)} alphas "
+              f"{out.alpha_trace.cpu().numpy()[1: it + 1].tolist()} max_defect "
+              f"{float(out.max_defect):.3e}", flush=True)
+        if not np.all(np.isfinite(jt)) or np.any(np.diff(jt) > 0):
+            fail(f"wafr_assoc {kind} solve: J non-finite or increasing")
+    cold = outs[0]
+    if not float(cold.J) < float(cold.J_trace[0]):
+        fail("wafr_assoc: the cold solve did not reduce J below J0")
+
+    # 2. the card against CPU tensors (the plants phase's rule)
+    t0 = time.perf_counter()
+    cpu = make_ilqr_solver(prob.plant, prob.cost, cfg)(
+        torch.as_tensor(x0), torch.as_tensor(u0), ee_goal(goals[0], device="cpu"),
+        initial_rollout=True)
+    print(f"assoc: wafr_assoc card vs CPU ({time.perf_counter() - t0:.1f} s on the CPU): "
+          f"{hold_to_cpu(np, 'wafr_assoc', cold, cpu)}", flush=True)
+
+    # 3. against the serial pass at one block (exact too, no stale seeds)
+    cfg_serial = dataclasses.replace(cfg, bp_assoc_scan=False, m_blocks_b=1)
+    serial_solver = make_ilqr_solver(prob.plant, prob.cost, cfg_serial)
+    t0 = time.perf_counter()
+    serial = serial_solver(x0_dev, u0_dev, goals_dev[0], initial_rollout=True)
+    torch.cuda.synchronize()
+    serial_s = time.perf_counter() - t0
+    k = min(int(cold.iters), int(serial.iters))
+    part = first_difference(cold.alpha_trace.cpu(), serial.alpha_trace.cpu(), k)
+    tie = first_tie(np, serial, PLANT_TIE)
+    ratio = float(cold.J) / float(serial.J)
+    print(f"assoc: exact pass vs the serial pass at m_blocks_b = 1, cold solve on the card "
+          f"(the serial graph captured and replayed in {serial_s:.1f} s): alphas exact "
+          f"{cold.alpha_trace[1:k + 1].tolist()} serial {serial.alpha_trace[1:k + 1].tolist()}; "
+          f"first difference at {part} (first near tie of the serial trace at {tie}); J exact / "
+          f"serial at the end {ratio:.6f}", flush=True)
+    if part is not None and part < tie:
+        fail(f"wafr_assoc: the exact and the serial pass part at iteration {part}, before the "
+             f"serial trace's first near tie ({tie})")
+
+    # 4. the warm re-solve, timed
+    one = lambda: solver(cold.x, cold.u, goals_dev[1], P0=cold.P, p0=cold.p, d0=cold.d)
+    one()
+    torch.cuda.synchronize()
+    _, warm_syncs = count_syncs(torch, one)
+    times = event_times(one, N_TIMED)
+    cold_stats, stats = solver.graphs.stats()
+    warm_ms = float(np.median(times))
+    versus = (f"; {warm_ms / kuka_warm_ms:.2f} x the fused path's {kuka_warm_ms:.3f} ms (timing "
+              f"phase)" if kuka_warm_ms else "")
+    print(f"assoc: warm {N_ITERS}-iteration re-solve (one graph replay): median {warm_ms:.3f} ms, "
+          f"min {min(times):.3f}, max {max(times):.3f} over {N_TIMED}{versus}; graph {stats.nodes} "
+          f"nodes, WHILE bodies {list(stats.body_nodes)} (the first is the iteration's), "
+          f"captured in {stats.seconds:.2f} s; cold graph {cold_stats.nodes} nodes; host reads "
+          f"{solver.host_syncs} (torch sync-debug count {warm_syncs}) on {card}", flush=True)
+    if solver.host_syncs or warm_syncs:
+        fail("wafr_assoc: the warm re-solve read the host")
+
+    # 5. the pass alone on the cold solve's derivative data, and tiled
+    w = weights_tensor(None, dev, torch.float32)
+    x_roll, d = open_loop_rollout(cfg, solver.chain.open_loop, x0_dev, u0_dev)
+    AB, H, g = _derivatives(cfg, solver.step_jac, prob.cost.quad, x_roll, u0_dev, goals_dev[0], w)
+    rho = torch.tensor(cfg.rho_init, device=dev)
+    n, m = 14, 7
+    per_n = {}
+    for Nh in ASSOC_HORIZONS:
+        r = Nh // N
+        # the WAFR's 16-knot shooting blocks, so the tiled defects sit on boundaries
+        c_h = dataclasses.replace(cfg, num_time_steps=Nh, m_blocks_f=Nh // cfg.n_blocks_f,
+                                  m_blocks_b=ASSOC_BLOCKS)
+        tile = lambda t: t.repeat((r,) + (1,) * (t.dim() - 1))     # along the knot axis
+        AB_h = tile(torch.cat([AB, AB[-1:]]))[:-1]
+        H_h, g_h, d_h, x_h = (tile(t) for t in (H, g, d, x_roll))
+        AB_pad = torch.cat([AB_h, AB_h.new_zeros((1, n, n + m))])
+        Pp, pp = torch.zeros(Nh, n, n, device=dev), torch.zeros(Nh, n, device=dev)
+        step = make_riccati_step(c_h, n, m)
+        block = lambda c: _block_attempt(c, AB_pad, H_h, g_h, Pp, pp, d_h, x_h, x_h)
+        exact = lambda: _assoc_attempt(c_h, step, AB_pad, H_h, g_h, d_h, rho)
+        serial1 = block(dataclasses.replace(c_h, bp_assoc_scan=False, m_blocks_b=1))
+        sweep4 = block(dataclasses.replace(c_h, bp_assoc_scan=False))
+        ric4 = block(dataclasses.replace(c_h, bp_assoc_scan=False, pallas_riccati=True))
+        got, ref = exact(), serial1(rho)
+        torch.cuda.synchronize()
+        errs = {}
+        for name, i in (("P", 0), ("K", 2), ("du", 3)):
+            diff = float((got[i].double() - ref[i].double()).abs().max())
+            errs[name] = (diff, diff / float(ref[i].abs().max()))
+        finite = all(bool(torch.isfinite(t).all()) for t in got[:7])
+        if not finite or bool(got[7]) or bool(ref[7]):
+            fail(f"assoc: the pass alone at N = {Nh}: non-finite outputs or a failed factor "
+                 f"(exact fail {bool(got[7])}, serial fail {bool(ref[7])})")
+        ms = {}
+        for label, fn in (("exact", exact), ("block_sweep", lambda: sweep4(rho)),
+                          ("riccati_cu", lambda: ric4(rho))):
+            ms[label] = graph_ms(torch, fn, ASSOC_TIMED)
+        per_n[Nh] = dict(errs=errs, ms={k: v[0] for k, v in ms.items()},
+                         nodes={k: v[1] for k, v in ms.items()})
+        print(f"assoc: the pass alone at N = {Nh} (14, 7): exact vs serial (m_blocks_b = 1) max "
+              "abs / relative-to-max error " + ", ".join(
+                  f"{k} {a:.3e} / {b:.3e}" for k, (a, b) in errs.items())
+              + "; one attempt (CUDA graph replay, mean of "
+              f"{ASSOC_TIMED}): exact {ms['exact'][0]:.3f} ms ({ms['exact'][1]} nodes), torch "
+              f"block sweep at {ASSOC_BLOCKS} blocks {ms['block_sweep'][0]:.3f} ms "
+              f"({ms['block_sweep'][1]} nodes), riccati.cu at {ASSOC_BLOCKS} lanes "
+              f"{ms['riccati_cu'][0]:.3f} ms ({ms['riccati_cu'][1]} nodes) on {card}", flush=True)
+    print(f"assoc: phase took {time.perf_counter() - t_phase:.1f} s", flush=True)
+    summary = dict(warm_ms=warm_ms, body_nodes=stats.body_nodes, nodes=stats.nodes, per_n=per_n)
+    return {"wafr_assoc": counts}, summary, {"assoc solver": solver.graphs}
+
+
 def constrained_problems(np):
     """Every problem the constraints phase solves, with its solver config (the
     fused Riccati sweep on), by path: the WAFR Kuka EE problem for the
@@ -2939,6 +3152,10 @@ def main():
 
     build.prepare_counters(dev)
 
+    if sys.argv[1:] == ["--assoc-only"]:        # the exact backward pass's phase alone
+        assoc_phase(torch, np, dev, card)
+        print("stopped after the assoc phase (--assoc-only): no result line", flush=True)
+        return
     kernels = kernel_phase(torch, np, dev)
     if sys.argv[1:] == ["--kernels-only"]:      # a short run while working on a kernel
         print("stopped after the kernel phase (--kernels-only): no result line", flush=True)
@@ -2947,6 +3164,7 @@ def main():
     median_ms, warm_solve, per_solve = timing_phase(torch, np, dev, solver, cold, goal)
     plant_launches, plant_summary = plants_phase(torch, np, dev, card)
     urdf_launches, urdf_summary = urdf_phase(torch, np, dev, card, median_ms)
+    assoc_launches, assoc_summary, assoc_caches = assoc_phase(torch, np, dev, card, median_ms)
     al_launches, al_summary, al_caches = constraints_phase(torch, np, dev, card)
     fig8_launches, control_step, runner, per_step, fig8_caches, fleet = fig8_phase(
         torch, np, dev, card)
@@ -2954,7 +3172,7 @@ def main():
                                                             kernels, card)
     pp_launches, pp_summary, pp_caches = pickplace_phase(torch, np, dev, card)
     rt_launches, rt_summary, rt_caches = runtime_phase(torch, np, dev, card)
-    caches = {"WAFR solver": solver.graphs, **al_caches, **fig8_caches, **batched_caches,
+    caches = {"WAFR solver": solver.graphs, **assoc_caches, **al_caches, **fig8_caches, **batched_caches,
               **pp_caches, **rt_caches}
     chain = next(r for r in kernels if r["name"] == "sim_chain")
     chain["max_abs_err"] = max(chain["max_abs_err"], runner.pop("max_abs_err"))
@@ -2983,7 +3201,8 @@ def main():
 
     # launches: the kernel's count on the path LAUNCHES_FROM names (the fig-8
     # closed loop where that runs it); launches_<path>: every path's own count
-    by_path = {"wafr_solve": launches, **plant_launches, **urdf_launches, **al_launches,
+    by_path = {"wafr_solve": launches, **plant_launches, **urdf_launches, **assoc_launches,
+               **al_launches,
                **fig8_launches,
                "wafr_batched": batched_launches, **pp_launches, **rt_launches}
     line = {"kernels": [
@@ -3011,6 +3230,11 @@ def main():
           f"{urdf_summary['body_nodes'][0]} nodes, graph {urdf_summary['nodes']} nodes captured in "
           f"{urdf_summary['capture_s']:.2f} s; riccati {urdf_summary['launches']['riccati']} "
           f"launches a re-solve on {card}", flush=True)
+    print(f"assoc: exact log-depth backward pass: warm {N_ITERS}-iteration re-solve "
+          f"{assoc_summary['warm_ms']:.3f} ms, iteration body {assoc_summary['body_nodes'][0]} "
+          "nodes; one attempt exact / torch block sweep / riccati.cu: " + "; ".join(
+              f"N={Nh} " + " / ".join(f"{v:.3f}" for v in r["ms"].values()) + " ms"
+              for Nh, r in assoc_summary["per_n"].items()) + f" on {card}", flush=True)
     print(f"constraints: inner-solve replay {al_summary['inner_ms']['cold']:.3f} ms cold, "
           f"{al_summary['inner_ms']['warm']:.3f} ms warm; constrained batched B={AL_BATCH} "
           f"{al_summary['batched_ms']:.3f} ms; AL MPC period {al_summary['period_ms']:.3f} ms "

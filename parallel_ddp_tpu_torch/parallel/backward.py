@@ -17,6 +17,9 @@ Per step (bpHelpers.cuh:37-334), with V_{k+1} = (P, p):
 
 With `cfg.pallas_riccati` one rho attempt is one call of the fused Riccati
 op (`ops/cuda_riccati.py`); otherwise the sweep is the per-step loop below.
+With `cfg.bp_assoc_scan` an attempt is instead the EXACT log-depth pass
+(`_assoc_attempt`): no blocks and no stale seeds, the recursion as a reverse
+associative scan (`parallel/scan.py`) of linear-fractional step maps.
 The rho-retry loop is a `graphs.while_loop`: a WHILE node of the graph being
 captured on the card (the device decides how many attempts run), a host loop
 on the CPU that reads its exit flag once per attempt.
@@ -34,6 +37,7 @@ import torch
 from parallel_ddp_tpu_torch import graphs
 from parallel_ddp_tpu_torch.config import SolverConfig
 from parallel_ddp_tpu_torch.ops.linalg import chol_solve_unrolled
+from parallel_ddp_tpu_torch.parallel.scan import associative_scan
 
 
 class BackwardPassResult(NamedTuple):
@@ -157,42 +161,126 @@ def run_block(step, rho, seed_P, seed_p, ab_b, H_b, g_b, d_b, k_b):
     return tuple(torch.stack(field, dim=lane_dims) for field in zip(*outs))
 
 
+def _solve(a, b):
+    """a^-1 b for batches of small square a (LU with partial pivoting), with
+    no host read: `solve_ex` with its checks off.  A singular a gives
+    non-finite values, which the Riccati step's Cholesky test then fails.
+    Callers stack their solves so that one call has a batch of at least 2
+    and a matrix right-hand side: on the card, torch sends a batch of one
+    with a single right-hand column to a cuSOLVER path that a CUDA graph
+    cannot capture (`scripts/torch_lu_capture_probe.py`)."""
+    return torch.linalg.solve_ex(a, b, check_errors=False)[0]
+
+
+def _assoc_attempt(cfg: SolverConfig, step, AB_pad, H, g, d, rho):
+    """One rho attempt of the EXACT log-depth backward pass (bp_assoc_scan;
+    the twin of the reference package's `_assoc_attempt`), over leading
+    scenario dims: AB_pad (..., N, n, n+m), H (..., N, n+m, n+m),
+    g (..., N, n+m), d (..., N, n), rho (...).
+
+    Each LQR step is a linear-fractional map on the cost-to-go
+    V(x) = 0.5 x'Px + p'x,
+        P_i = J + F' P (I + C P)^-1 F,   p_i = eta + F' (I + P C)^-1 (p + P z),
+    a family closed under composition, and the composition is associative
+    (Sarkka & Garcia-Fernandez, IEEE TAC 2021, Lemma 8).  A reverse
+    `associative_scan` of the per-step elements gives the suffix products
+    G_k = e_k o ... o e_{N-2}; each applied to the terminal expansion is V_k,
+    and one application of the serial pass's step over all N knots at once
+    (k a lane tensor) gives the gains and every other output.  Shooting
+    defects enter as affine offsets z_k = d_k on block boundaries.  Needs
+    plain regularization (state_reg=False): Huu + rho I is R~ = R + rho I.
+    `fail` is reduced over time only, one flag per scenario."""
+    N = cfg.num_time_steps
+    nf = N - 1
+    n = AB_pad.shape[-2]
+    m = AB_pad.shape[-1] - n
+    t_dim = AB_pad.dim() - 3
+    eye_m = torch.eye(m, dtype=H.dtype, device=H.device)
+    eye_n = torch.eye(n, dtype=H.dtype, device=H.device)
+
+    A = AB_pad[..., :nf, :, :n]
+    B = AB_pad[..., :nf, :, n:]
+    Q = H[..., :nf, :n, :n]
+    Mx = H[..., :nf, :n, n:]
+    R = H[..., :nf, n:, n:]
+    gx = g[..., :nf, :n]
+    gu = g[..., :nf, n:]
+
+    # affine offsets: the shooting defect at block boundaries
+    c = torch.zeros_like(d[..., :nf, :])
+    if cfg.m_blocks_f > 1:
+        nb = cfg.n_blocks_f
+        c[..., nb - 1::nb, :] = d[..., nb - 1:nf:nb, :]
+
+    # per-step elements, R~ = R + rho I factorized once per step
+    R_reg = R + rho[..., None, None, None] * eye_m
+    rhs = torch.cat([Mx.mT, B.mT, gu[..., None]], dim=-1)
+    sol, pd_ok = chol_solve_unrolled(R_reg, rhs)           # (..., nf, m, 2n+1)
+    RiMt = sol[..., :n]                                     # R~^-1 M'
+    RiBt = sol[..., n:2 * n]                                # R~^-1 B'
+    Rigu = sol[..., 2 * n]                                  # R~^-1 gu
+    F = A - B @ RiMt
+    C = B @ RiBt
+    J = Q - Mx @ RiMt
+    z = c - (B @ Rigu[..., None])[..., 0]
+    eta = gx - (Mx @ Rigu[..., None])[..., 0]
+
+    def combine(ei, ej):
+        """Compose: ei earlier in time, ej later."""
+        Fi, zi, Ci, Ji, etai = ei
+        Fj, zj, Cj, Jj, etaj = ej
+        # D = Fj (I + Ci Jj)^-1,  E = Fi' (I + Jj Ci)^-1: one stacked solve
+        ICJ = eye_n + Ci @ Jj
+        IJC = eye_n + Jj @ Ci
+        Dt, Et = _solve(torch.stack([ICJ.mT, IJC.mT]), torch.stack([Fj.mT, Fi]))
+        D, E = Dt.mT, Et.mT
+        F12 = D @ Fi
+        z12 = (D @ (zi - (Ci @ etaj[..., None])[..., 0])[..., None])[..., 0] + zj
+        C12 = D @ Ci @ Fj.mT + Cj
+        eta12 = (E @ (etaj + (Jj @ zi[..., None])[..., 0])[..., None])[..., 0] + etai
+        J12 = E @ Jj @ Fi + Ji
+        return F12, z12, C12, J12, eta12
+
+    # suffix products; the reverse scan hands fn (later, earlier)
+    Fs, zs, Cs, Js, etas = associative_scan(lambda a, b: combine(b, a), (F, z, C, J, eta),
+                                            dim=t_dim, reverse=True)
+
+    # V_k = G_k applied to the terminal expansion (bpHelpers.cuh:361-367):
+    # P_k = J + F' P (I + C P)^-1 F and p_k = eta + W' (p + P z) with
+    # W = (I + C' P)^-1 F = (I + P C)^-T F, both from one stacked solve
+    P_term = H[..., nf, None, :n, :n]
+    p_term = g[..., nf, None, :n]
+    S = _solve(torch.stack([eye_n + Cs @ P_term, eye_n + Cs.mT @ P_term]),
+               torch.stack([Fs, Fs]))
+    P_all = Js + Fs.mT @ P_term @ S[0]
+    p_all = etas + (S[1].mT @ (p_term + (P_term @ zs[..., None])[..., 0])[..., None])[..., 0]
+    # the carry of step k is V_{k+1}; the terminal row consumes V_term itself
+    P_next = torch.cat([P_all[..., 1:, :, :], P_term, P_term], dim=t_dim)
+    p_next = torch.cat([p_all[..., 1:, :], p_term, p_term], dim=t_dim)
+
+    ks = torch.arange(N, device=H.device)
+    _, (P_o, p_o, K_o, du_o, ApBK_o, Bdu_o, dj_o, fail_o) = step(
+        rho[..., None], (P_next, p_next), (AB_pad, H, g, d, ks))
+    fail = torch.logical_or(fail_o.any(-1), (~pd_ok).any(-1))
+    return P_o, p_o, K_o, du_o, ApBK_o, Bdu_o, dj_o.sum(-2), fail
+
+
 def per_scenario_mask(mask, t):
     """A flag per scenario, mask (...), broadcast against t (..., more dims)."""
     return mask.reshape(mask.shape + (1,) * (t.dim() - mask.dim()))
 
 
-def backward_pass(
-    cfg: SolverConfig,
-    AB: torch.Tensor,    # (..., N-1, n, n+m)
-    H: torch.Tensor,     # (..., N, n+m, n+m)
-    g: torch.Tensor,     # (..., N, n+m)
-    Pp: torch.Tensor,    # (..., N, n, n) previous-iteration CTG (block boundary seeds)
-    pp: torch.Tensor,    # (..., N, n)
-    d: torch.Tensor,     # (..., N, n) defects
-    x: torch.Tensor,     # (..., N, n) current trajectory
-    xp2: torch.Tensor,   # (..., N, n) trajectory at which Pp/pp were computed
-    rho0: torch.Tensor,  # (...)
-    drho0: torch.Tensor,  # (...)
-) -> BackwardPassResult:
-    """Full backward pass with the rho-retry loop (backwardPassGPU,
-    bpHelpers.cuh:483-517), for one problem or, with leading scenario dims
-    "...", a batch of independent ones (the reference's vmap over its
-    while_loop): each scenario retries under its own fail & (tries < max),
-    and the loop runs while any scenario still does."""
-    if cfg.bp_assoc_scan:
-        raise NotImplementedError(
-            "bp_assoc_scan (the associative-scan backward pass) is not ported")
+def _block_attempt(cfg: SolverConfig, AB_pad, H, g, Pp, pp, d, x, xp2):
+    """One rho attempt of the block-parallel pass, as a function of rho:
+    the fused Riccati op's sweep (`cfg.pallas_riccati`) or the per-step
+    loop, over `m_blocks_b` blocks seeded from the previous iteration."""
     N = cfg.num_time_steps
     Mb = cfg.m_blocks_b
     Nb = cfg.n_blocks_b
     n = x.shape[-1]
-    m = AB.shape[-1] - n
+    m = AB_pad.shape[-1] - n
     nf = N - 1
-    lead = AB.shape[:-3]
-
-    # pad AB with a zero row at k = N-1 so every block has Nb uniform steps
-    AB_pad = torch.cat([AB, AB.new_zeros(lead + (1, n, n + m))], dim=-3)
+    lead = AB_pad.shape[:-3]
 
     # block seeds: the final block starts from the terminal expansion
     # (bpHelpers.cuh:361-367), the others from the previous iteration's
@@ -230,6 +318,42 @@ def backward_pass(
             flat = lambda a: a.reshape(lead + (N,) + a.shape[len(lead) + 2:])
             return (flat(P_o), flat(p_o), flat(K_o), flat(du_o), flat(ApBK_o),
                     flat(Bdu_o), dj_o.sum(dim=(-3, -2)), fail_o.any(-1).any(-1))
+    return attempt
+
+
+def backward_pass(
+    cfg: SolverConfig,
+    AB: torch.Tensor,    # (..., N-1, n, n+m)
+    H: torch.Tensor,     # (..., N, n+m, n+m)
+    g: torch.Tensor,     # (..., N, n+m)
+    Pp: torch.Tensor,    # (..., N, n, n) previous-iteration CTG (block boundary seeds)
+    pp: torch.Tensor,    # (..., N, n)
+    d: torch.Tensor,     # (..., N, n) defects
+    x: torch.Tensor,     # (..., N, n) current trajectory
+    xp2: torch.Tensor,   # (..., N, n) trajectory at which Pp/pp were computed
+    rho0: torch.Tensor,  # (...)
+    drho0: torch.Tensor,  # (...)
+) -> BackwardPassResult:
+    """Full backward pass with the rho-retry loop (backwardPassGPU,
+    bpHelpers.cuh:483-517), for one problem or, with leading scenario dims
+    "...", a batch of independent ones (the reference's vmap over its
+    while_loop): each scenario retries under its own fail & (tries < max),
+    and the loop runs while any scenario still does."""
+    n = x.shape[-1]
+    m = AB.shape[-1] - n
+    lead = AB.shape[:-3]
+
+    # pad AB with a zero row at k = N-1 so every block has Nb uniform steps
+    AB_pad = torch.cat([AB, AB.new_zeros(lead + (1, n, n + m))], dim=-3)
+
+    if cfg.bp_assoc_scan:
+        # the exact log-depth pass: no blocks, no stale boundary seeds
+        step = make_riccati_step(cfg, n, m)
+
+        def attempt(rho):
+            return _assoc_attempt(cfg, step, AB_pad, H, g, d, rho)
+    else:
+        attempt = _block_attempt(cfg, AB_pad, H, g, Pp, pp, d, x, xp2)
 
     # rho-retry loop (backwardPassGPU, bpHelpers.cuh:489-515; the reference
     # package's retry_cond / retry_body) with a safety cap.  The first

@@ -5,7 +5,8 @@
         e_{k+1} = (A_k - B_k K_k) e_k + (-alpha * B_k du_k + d_k on boundaries)
     (fpHelpers.cuh:17-53) is a serial loop over the horizon, batched over the
     line-search alphas (the reference package uses a log-depth associative
-    scan; torch has none, and a log-depth version is later work);
+    scan; running `sweep_combine` through `parallel/scan.py`, which keeps
+    its pairing, is later work);
   * the multiple-shooting ROLLOUT runs every (alpha, shooting block) lane at
     once, through the plant's fused rollout op when it has one;
   * per-alpha COST and DEFECT reductions are batched reductions;

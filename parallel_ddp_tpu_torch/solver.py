@@ -157,8 +157,7 @@ class _Solver:
     goal or `iter_limit` needs no new capture."""
 
     def __init__(self, plant: Plant, cost: CostModel, cfg: SolverConfig):
-        unported = [f for f in ("bf16_rollout", "bf16_cost", "bp_assoc_scan")
-                    if getattr(cfg, f)]
+        unported = [f for f in ("bf16_rollout", "bf16_cost") if getattr(cfg, f)]
         if unported:
             raise NotImplementedError(f"not ported yet: {', '.join(unported)}")
         self.plant, self.cost, self.cfg = plant, cost, cfg

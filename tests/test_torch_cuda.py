@@ -967,3 +967,86 @@ def test_mpc_loop_node_one_read_and_no_capture_after_warmup(dev):
     assert node.captures() == captured
     assert node.host_reads == node.solve_count == len(changes)
     assert node.solve_trace[2][2] == 1
+
+
+# --- the exact log-depth backward pass (bp_assoc_scan)
+
+def _assoc_lqr_inputs(N, seed=0):
+    """Random LQR data at the Kuka's (14, 7): AB ~ N(0, 0.2) (a stable A),
+    symmetric H = C C' + 0.5 I, defects on the 16-knot shooting boundaries;
+    numpy, for both devices."""
+    rng = np.random.default_rng(seed)
+    n, m = 14, 7
+    AB = rng.normal(0, 0.2, (N - 1, n, n + m)).astype(np.float32)
+    C = rng.normal(0, 0.3, (N, n + m, n + m))
+    H = (np.einsum("kij,klj->kil", C, C) + 0.5 * np.eye(n + m)).astype(np.float32)
+    g = rng.normal(0, 1.0, (N, n + m)).astype(np.float32)
+    d = np.zeros((N, n), np.float32)
+    d[15:N - 1:16] = rng.normal(0, 0.1, d[15:N - 1:16].shape)
+    zeros = lambda *s: np.zeros(s, np.float32)
+    return [AB, H, g, zeros(N, n, n), zeros(N, n), d, zeros(N, n), zeros(N, n)]
+
+
+@pytest.mark.parametrize("N", [64, 256])
+def test_assoc_backward_on_the_card_matches_cpu(dev, N):
+    """The exact pass on CUDA tensors against the same pass on CPU tensors:
+    cuBLAS / cuSOLVER and the CPU's BLAS / LAPACK round in another order
+    (|card - cpu| <= 1e-3 |cpu| + 1e-4 max|cpu|, as
+    tests/test_torch_assoc_bp.py holds the port to the reference)."""
+    from parallel_ddp_tpu_torch.config import SolverConfig
+    from parallel_ddp_tpu_torch.parallel.backward import backward_pass
+
+    cfg = SolverConfig(num_time_steps=N, total_time=1.0, m_blocks_b=1, m_blocks_f=N // 16,
+                       num_alpha=4, state_reg=False, bp_assoc_scan=True)
+    args = _assoc_lqr_inputs(N)
+    rho, drho = torch.tensor(1.0), torch.tensor(1.0)
+    cpu = backward_pass(cfg, *(torch.as_tensor(a) for a in args), rho, drho)
+    gpu = backward_pass(cfg, *(torch.as_tensor(a, device=dev) for a in args), rho.to(dev),
+                        drho.to(dev))
+    assert not bool(cpu.fail) and not bool(gpu.fail)
+    assert float(gpu.rho) == float(cpu.rho)
+    for name in ("P", "p", "K", "du", "ApBK", "Bdu", "dJexp"):
+        want = getattr(cpu, name)
+        torch.testing.assert_close(getattr(gpu, name).cpu(), want, rtol=1e-3,
+                                   atol=1e-4 * float(want.abs().max()), msg=name)
+
+
+def test_assoc_solve_replayed_matches_eager_with_no_sync(dev):
+    """The bp_assoc_scan solve as one replay: the same body run eagerly on
+    the card, the CPU's decisions, no Riccati launch; new goals and weights
+    make no new capture and no stream sync."""
+    from parallel_ddp_tpu_torch.config import CostWeights
+    from parallel_ddp_tpu_torch.presets import ee_goal
+    from parallel_ddp_tpu_torch.solver import make_ilqr_solver
+
+    prob, cfg = _small_problem()
+    cfg = dataclasses.replace(cfg, pallas_riccati=False, state_reg=False, bp_assoc_scan=True)
+    solver = make_ilqr_solver(prob.plant, prob.cost, cfg)
+    x0, u0 = torch.zeros(16, 14, device=dev), torch.zeros(16, 7, device=dev)
+    goals = [ee_goal(g, device=dev) for g in ((0.3, -0.3, 0.9), (0.35, -0.25, 0.85))]
+    cuda_riccati.riccati_cuda.counter.reset()
+    cuda_rbd.kuka_jac_qdd_cuda.counter.reset()
+    cold = solver(x0, u0, goals[0], initial_rollout=True)
+    torch.cuda.synchronize()
+    assert cuda_riccati.riccati_cuda.counter.launches == 0
+    assert cuda_rbd.kuka_jac_qdd_cuda.counter.launches > 0
+    eager, reads = solver.run(x0, u0, goals[0], None, None, None, cfg.max_iter, CostWeights(),
+                              True, False)
+    assert reads > 0
+    _assert_same_run(cold, eager)
+    cpu = make_ilqr_solver(prob.plant, prob.cost, cfg)(
+        x0.cpu(), u0.cpu(), {k: v.cpu() for k, v in goals[0].items()}, initial_rollout=True)
+    _assert_same_decisions(cold, cpu)
+    w2 = CostWeights(q_ee1=0.3, r_ee=2e-4)
+    second = solver(x0, u0, goals[1], w2, initial_rollout=True)
+    assert len(solver.graphs) == 1 and solver.host_syncs == 0
+    assert not torch.equal(second.J_trace, cold.J_trace)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        solver(x0, u0, goals[0], w2, initial_rollout=True)
+        solver(x0, u0, goals[1], initial_rollout=True)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert len(solver.graphs) == 1

@@ -56,6 +56,15 @@ def test_port_has_modules():
         assert expected in names
 
 
+def test_port_has_the_scan_module():
+    """The associative scan that the exact backward pass runs on (and the
+    log-depth forward sweep is to reuse) is the port's own module."""
+    scan = PORT / "parallel" / "scan.py"
+    assert scan.is_file()
+    tree = ast.parse(scan.read_text())
+    assert "associative_scan" in {n.name for n in tree.body if isinstance(n, ast.FunctionDef)}
+
+
 @pytest.mark.parametrize("path", _port_files(), ids=lambda p: p.relative_to(ROOT).as_posix())
 def test_no_jax_or_reference_import(path):
     bad = [name for name in _imports(path) if _forbidden(name)]
@@ -95,6 +104,15 @@ def _code_strings(path):
 def _reference_paths(path):
     return [s for s in _code_strings(path)
             if _REF_PATH.search(s) and not _CITATION.fullmatch(s)]
+
+
+def test_port_has_the_scan_module():
+    """The associative scan that the exact backward pass runs on (and the
+    log-depth forward sweep is to reuse) is the port's own module."""
+    scan = PORT / "parallel" / "scan.py"
+    assert scan.is_file()
+    tree = ast.parse(scan.read_text())
+    assert "associative_scan" in {n.name for n in tree.body if isinstance(n, ast.FunctionDef)}
 
 
 @pytest.mark.parametrize("path", _port_files(), ids=lambda p: p.relative_to(ROOT).as_posix())

@@ -153,6 +153,18 @@ def test_iteration_budget_and_host_syncs():
     np.testing.assert_array_equal(_traces(out)[1], _traces(main)[1][:3])
 
 
+def test_assoc_scan_option_is_taken_and_bf16_still_refused():
+    """bp_assoc_scan (the exact log-depth backward pass) builds a solver;
+    the two bf16 options are not ported and still raise, with it too."""
+    prob = kuka_ee(num_time_steps=N, m_blocks=M, num_alpha=A)
+    cfg = dataclasses.replace(prob.cfg, pallas_riccati=False, state_reg=False,
+                              bp_assoc_scan=True)
+    assert make_ilqr_solver(prob.plant, prob.cost, cfg).cfg.bp_assoc_scan
+    for field in ("bf16_rollout", "bf16_cost"):
+        with pytest.raises(NotImplementedError, match=field):
+            make_ilqr_solver(prob.plant, prob.cost, dataclasses.replace(cfg, **{field: True}))
+
+
 def test_unported_options_raise():
     cfg_ref = _reference()[0]
     prob = kuka_ee(num_time_steps=N, m_blocks=M, num_alpha=A)
