@@ -244,10 +244,13 @@ TOL = {
     # (max |x| ~ 7) at T = 63 Euler on an H100; rounding compounds per step
     "sim_chain": (1e-5, 2e-6),
 }
-# the card's published peaks (NVIDIA H100 SXM data sheet): HBM3 bytes/s and
-# float32 operations/s outside the tensor cores (the kernels' arithmetic)
+# the card's published peaks (NVIDIA H100 SXM): HBM3 bytes/s, and the
+# operations/s outside the tensor cores (the kernels' arithmetic) by type:
+# float32 from the data sheet, bfloat16 from the H100 architecture
+# whitepaper's non-tensor rate (twice float32's, on packed pairs)
 H100_BYTES_PER_S = 3.35e12
 H100_FP32_PER_S = 67e12
+H100_BF16_PER_S = 133.8e12
 # GPU (kernels) vs CPU (plain versions) solve: the same accept/reject and
 # alpha decisions, and J within this relative tolerance (float32 rounding of
 # two different summation orders over 6 iterations of a chaotic problem)
@@ -285,9 +288,16 @@ PP_X_ATOL = 1e-4
 PP_TIMED = 50             # 1-step loop calls timed by CUDA events
 # the four-node stack of examples/pick_n_place.py on a loopback bus: solver
 # (MPCLoopNode), runner, simulator (1 kHz Euler, realtime, on the card) and
-# the pick-and-place goal node, each in its own thread for RT_SECONDS
+# the pick-and-place goal node, each in its own thread for RT_SECONDS of
+# wall time and on until the plant's clock reaches RT_PLANT_S (at most
+# RT_MAX_SECONDS): the first waypoint settles near 2.4 s of plant time, and
+# the plant keeps 0.27-0.35 of real time on a shared host (the threads take
+# turns at the interpreter lock), so a fixed wall window would hold the
+# host's pace, not the loop
 RT_PORT = 7795
 RT_SECONDS = 10.0
+RT_PLANT_S = 3.5
+RT_MAX_SECONDS = 40.0
 RT_BUS_CHECK_S = 3.0
 RT_FK_ATOL = 1e-6          # the goal node's kinematics on the card against CPU tensors (m)
 # scenario batching: the batch the checks run at, the scenarios held against
@@ -430,6 +440,9 @@ PATH_KERNELS = {
     "plants_pendulum_loop": ("riccati",),
     "urdf_iiwa14": ("riccati",),
     "wafr_assoc": ("rbd_jac", "rollout", "sim_chain"),
+    "wafr_bf16": ("rbd_jac", "rollout_bf16", "riccati", "sim_chain"),
+    "wafr_bf16_cost": ("rbd_jac", "rollout", "riccati", "sim_chain"),
+    "wafr_batched_bf16": ("rbd_jac", "rollout_bf16", "riccati", "sim_chain"),
     "constrained_wafr": ("rbd_jac", "rollout", "riccati", "sim_chain"),
     "constrained_batched": ("rbd_jac", "rollout", "riccati", "sim_chain"),
     "constrained_pendulum_loop": ("riccati",),
@@ -437,9 +450,50 @@ PATH_KERNELS = {
     "runtime": ("rbd_jac", "rollout", "riccati", "sim_chain"),
 }
 # the path whose count is a kernel's `launches` in the kernels line: the fig-8
-# closed loop, and for the kernel it does not run, the block re-rollout loop
+# closed loop, for the kernel it does not run the block re-rollout loop, and
+# for the bfloat16 rollout the bfloat16 WAFR solves
 LAUNCHES_FROM = {"rbd_jac": "fig8", "rollout": "fig8", "riccati": "fig8", "sim_chain": "fig8",
-                 "qdd": "fig8_block_rerollout"}
+                 "qdd": "fig8_block_rerollout", "rollout_bf16": "wafr_bf16"}
+# the bfloat16 forward path (bf16 phase).  The bfloat16 rollout kernel against
+# its plain version on the card, max abs error over max(|x|, 1), by shape
+# (BF16_LIMITS).  The kernel rounds each operation as the plain version does
+# (tests/test_torch_group_core.py, bit for bit on the host), but its float32
+# feedback sums round otherwise than the plain version's matmul.  Where no
+# control lands on the other side of a bfloat16 rounding for it, the two
+# differ by those float32 roundings: 7.5e-8 (wafr) and 6.5e-8 (rk3) on an
+# H100, limit 1e-5.  Over the 4,096 lanes of b256 a few do, and the step
+# carries the other bfloat16 neighbour: 2.0e-3 there, limit 5e-3, about
+# one bfloat16 rounding (2^-8) of max |x|.  At least BF16_SAME_MIN of the
+# outputs are the plain version's bit for bit (93.8-95.5 % read).  Each
+# limit is shown to separate the precisions: rollout.cu's float32 result
+# must lie outside it on the same inputs (2.3e-2 / 2.9e-2 / 3.5e-2 read),
+# as it does from each bfloat16 step rounding the state to bfloat16.  The
+# bfloat16 kernel's gap to rollout.cu is printed beside the JAX step
+# oracle's 0.03 (tests/test_bf16.py:93), a one-step band that 16 steps of
+# rounding outgrow at b256 (PERF.md §6).
+BF16_LIMITS = {"wafr": 1e-5, "rk3": 1e-5, "b256": 5e-3}
+BF16_SAME_MIN = 0.9
+BF16_STEP_BAND = 3e-2
+BF16_BATCH = 256
+# the bfloat16 solves on the card against the same solves on CPU tensors:
+# hold_to_cpu's rule at one bfloat16 rounding (2^-8) of J: the two share
+# every bfloat16 operation but the card's library reductions (the kinematics'
+# 3x3 products, the |u|^2 sum) and its sin/cos, which may round a value to
+# the other bfloat16 neighbour
+BF16_CPU_RTOL = 2.0 ** -8
+# the JAX test's bands of a bfloat16 solve against the float32 one
+# (tests/test_bf16.py:42-71: the same alphas, J within 6e-2, x within 0.05),
+# set at N = 16 on the JAX package's CPU core, whose float32 constants
+# promote every operation after the cast.  On the card (the scalar-channel
+# core, bfloat16 throughout) the WAFR cold solve's second iteration is a
+# near tie at bfloat16 resolution (a rejected step), and there the
+# bfloat16 and float32 solves part on the CPU too (PERF.md §6): the
+# phase holds the decisions up to the float32 trace's first near tie at one
+# bfloat16 rounding (BF16_CPU_RTOL) and J within BF16_J_RTOL until the two
+# part, as hold_to_cpu holds the card to the CPU, and prints the three bands
+# over the whole solve
+BF16_J_RTOL = 6e-2
+BF16_X_ATOL = 0.05
 
 
 def fail(msg):
@@ -533,9 +587,11 @@ def host_and_kernel_us(fn, enqueues, graph_launches=20, replays=10):
 
 def count_ops(fn):
     """Floating-point operations of one call of fn (a plain PyTorch version,
-    which repeats its kernel's arithmetic): every arithmetic aten call it
-    dispatches counts one operation per output element, a matrix product two
-    per multiply-add."""
+    which repeats its kernel's arithmetic) by type, {"float32": n,
+    "bfloat16": n}: every arithmetic aten call it dispatches counts one
+    operation per output element, a matrix product two per multiply-add,
+    under the type of its output (a sum's under its input's); float16 counts
+    as bfloat16, every other type as float32."""
     import math
 
     import torch
@@ -543,38 +599,43 @@ def count_ops(fn):
 
     pointwise = {"add", "sub", "rsub", "mul", "div", "neg", "sin", "cos", "sqrt", "rsqrt",
                  "reciprocal", "pow", "square", "abs", "addcmul", "addcdiv", "atan2"}
+    half = (torch.bfloat16, torch.float16)
 
     class Counter(TorchDispatchMode):
-        ops = 0
+        ops = {"float32": 0, "bfloat16": 0}
+
+        def add(self, t, n):
+            self.ops["bfloat16" if t.dtype in half else "float32"] += n
 
         def __torch_dispatch__(self, func, types, args=(), kwargs=None):
             out = func(*args, **(kwargs or {}))
             name = func.overloadpacket.__name__.rstrip("_")
             if name in pointwise and isinstance(out, torch.Tensor):
-                self.ops += out.numel()
+                self.add(out, out.numel())
             elif name in ("mm", "bmm", "mv", "dot", "addmm", "baddbmm", "addmv"):
                 a = args[-2]            # the left factor: its last dim is contracted
-                self.ops += 2 * out.numel() * a.shape[-1]
+                self.add(out, 2 * out.numel() * a.shape[-1])
             elif name in ("sum", "linalg_vector_norm") and isinstance(args[0], torch.Tensor):
-                self.ops += args[0].numel()
+                self.add(args[0], args[0].numel())
             return out
 
     with Counter() as c:
         fn()
-    assert math.isfinite(c.ops)
+    assert all(math.isfinite(n) for n in c.ops.values())
     return c.ops
 
 
 def roofline(inputs, outputs, ops):
     """bound_ms and what bounds it: each input byte read once and each output
     byte written once over the card's memory rate, against the operations
-    over its float32 peak."""
+    (count_ops) each over the card's peak for its type."""
     nbytes = sum(t.numel() * t.element_size() for t in list(inputs) + list(outputs))
     by_bytes = nbytes / H100_BYTES_PER_S * 1e3
-    by_ops = ops / H100_FP32_PER_S * 1e3
+    by_ops = (ops["float32"] / H100_FP32_PER_S + ops["bfloat16"] / H100_BF16_PER_S) * 1e3
     return dict(bound_ms=max(by_bytes, by_ops),
                 bound_by="bytes" if by_bytes >= by_ops else "operations",
-                bytes=nbytes, operations=ops, library_ms=None)
+                bytes=nbytes, operations=ops["float32"] + ops["bfloat16"],
+                operations_bf16=ops["bfloat16"], library_ms=None)
 
 
 def count_syncs(torch, fn):
@@ -1052,6 +1113,7 @@ def counters():
 
     return {"rbd_jac": (cuda_rbd.kuka_jac_qdd_cuda.counter,),
             "rollout": (cuda_rollout.kuka_rollout_cuda.counter,),
+            "rollout_bf16": (cuda_rollout.kuka_rollout_bf16_cuda.counter,),
             "riccati": (cuda_riccati.riccati_cuda.counter,), "qdd": (cuda_rbd.kuka_qdd_cuda.counter,),
             "sim_chain": (cuda_sim_chain.kuka_open_loop_cuda.counter,
                           cuda_sim_chain.kuka_runner_cuda.counter)}
@@ -1310,20 +1372,21 @@ def traces_read(gpu, cpu, capped):
             f"{gpu.alpha_trace[1:it_g + 1].tolist()} CPU {cpu.alpha_trace[1:it_c + 1].tolist()}")
 
 
-def hold_to_cpu(np, label, gpu, cpu, cap=None):
+def hold_to_cpu(np, label, gpu, cpu, cap=None, bands=None):
     """The card's solve against the CPU's (the CPU's capped at `cap`
     iterations if given: where it stops there, its trace is a prefix of the
-    same solve's): alphas equal up to the CPU trace's first near tie
-    (PLANT_TIE), J within SOLVE_RTOL up to the parting, the final J within
-    SOLVE_RTOL, or PLANT_FINAL_RTOL after a parting.  Returns the printed
-    reading."""
+    same solve's).  bands = (tie, rtol, final_rtol), by default (PLANT_TIE,
+    SOLVE_RTOL, PLANT_FINAL_RTOL): alphas equal up to the CPU trace's first
+    near tie at `tie`, J within `rtol` up to the parting, the final J within
+    `rtol`, or `final_rtol` after a parting.  Returns the printed reading."""
+    tie, rtol, final_rtol = bands or (PLANT_TIE, SOLVE_RTOL, PLANT_FINAL_RTOL)
     it_g, it_c = int(gpu.iters), int(cpu.iters)
     capped = cap is not None and it_c >= cap
     k = min(it_g, it_c)
     part = first_difference(gpu.alpha_trace.cpu(), cpu.alpha_trace, k)
     if part is None and it_g != it_c and not capped:
         part = k + 1
-    allowed = first_tie(np, cpu, PLANT_TIE)
+    allowed = first_tie(np, cpu, tie)
     upto = k + 1 if part is None else part
     gap = trace_gap(gpu.J_trace, cpu.J_trace, k)
     end_g = float(gpu.J_trace[it_c]) if capped else float(gpu.J)
@@ -1334,10 +1397,10 @@ def hold_to_cpu(np, label, gpu, cpu, cap=None):
     if part is not None and part < allowed:
         fail(f"plants {label}: the card's alphas part from the CPU's at iteration {part}, "
              f"before the first near tie ({allowed}): {read}")
-    if gap[:upto].max() > SOLVE_RTOL:
+    if gap[:upto].max() > rtol:
         fail(f"plants {label}: J on the card and the CPU differ by {gap[:upto].max():.2e} > "
-             f"{SOLVE_RTOL} before the paths part: {read}")
-    bar = SOLVE_RTOL if part is None else PLANT_FINAL_RTOL
+             f"{rtol} before the paths part: {read}")
+    bar = rtol if part is None else final_rtol
     if final > bar:
         fail(f"plants {label}: final J differs by {final:.2e} > {bar}: {read}")
     return read
@@ -1890,6 +1953,271 @@ def assoc_phase(torch, np, dev, card, kuka_warm_ms=None):
     print(f"assoc: phase took {time.perf_counter() - t_phase:.1f} s", flush=True)
     summary = dict(warm_ms=warm_ms, body_nodes=stats.body_nodes, nodes=stats.nodes, per_n=per_n)
     return {"wafr_assoc": counts}, summary, {"assoc solver": solver.graphs}
+
+
+def bf16_phase(torch, np, dev, card, kuka_warm_ms=None):
+    """The bfloat16 forward path (SolverConfig.bf16_rollout, bf16_cost) on
+    the card.  The rollout kernel's bfloat16 entry against its plain version
+    on the card and against rollout.cu at the WAFR shape (Euler), RK3 and
+    B = BF16_BATCH, timed beside rollout.cu with its bound; the WAFR solve
+    with both flags (path wafr_bf16: rollout_bf16 launches, rollout does
+    not) and with bf16_cost alone (wafr_bf16_cost), each cold + N_WARM warm
+    re-solves in one replay each with 0 host reads, held to the same cold
+    solve on CPU tensors (hold_to_cpu at BF16_CPU_RTOL), read against the
+    float32 solve on the card at the JAX test's bands, and its warm re-solve
+    timed with its body's nodes beside the float32 path's; the batched
+    6-iteration solve at every B of BATCH_SIZES for float32, bf16_cost and
+    both (solves/s in one run) and at BATCH_STAGES each one's stage split.
+    Returns (launches by path, the kernel's row, a summary, graph caches)."""
+    from parallel_ddp_tpu_torch.config import SolverConfig
+    from parallel_ddp_tpu_torch.ops import cuda_rollout
+    from parallel_ddp_tpu_torch.parallel.sharding import make_batched_solver
+    from parallel_ddp_tpu_torch.presets import ee_goal, figure8_goal, kuka_ee
+    from parallel_ddp_tpu_torch.solver import make_ilqr_solver
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(17)
+    f32 = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev)
+    N, M, A, nx, nu = 64, 4, 16, 14, 7
+    dt = 0.5 / (N - 1)
+    alphas = f32(SolverConfig(num_alpha=A, alpha_base=0.5).alphas())
+    skip = torch.zeros((M, N // M), dtype=torch.uint8, device=dev)
+    skip[-1, -1] = 1                          # k = N-1
+
+    # 1. the kernel against its plain version on the card and against
+    #    rollout.cu, each shape's times beside rollout.cu's
+    def rel(got, ref):
+        return max(float((g - r).abs().max()) / max(float(r.abs().max()), 1.0)
+                   for g, r in zip(got, ref))
+
+    kern = dict(name="rollout_bf16", route="cuda", source="parallel_ddp_tpu_torch/csrc/rollout.cu",
+                replaces="parallel_ddp_tpu/solver.py:132", max_abs_err=0.0, ok=True)
+    bad = []
+    for label, integ, lead in (("wafr", 1, ()), ("rk3", 3, ()), (f"b{BF16_BATCH}", 1, (BF16_BATCH,))):
+        args = (f32(rng.normal(0, 0.3, lead + (A, N, nx))), f32(rng.normal(0, 1.0, lead + (N, nu))),
+                f32(rng.normal(0, 0.05, lead + (N, nu, nx))), f32(rng.normal(0, 0.5, lead + (N, nu))),
+                f32(rng.normal(0, 0.3, lead + (N, nx))), alphas, skip)
+        kw = dict(ee_type=1, gravity=0.0, integrator=integ, dt=dt, m_blocks=M)
+        call = lambda: cuda_rollout.kuka_rollout_bf16_cuda(*args, **kw)
+        plain = lambda: cuda_rollout.kuka_rollout_bf16_plain(*args, **kw)
+        call32 = lambda: cuda_rollout.kuka_rollout_cuda(*args, **kw)
+        got, ref, out32 = call(), plain(), call32()
+        cpu_ref = cuda_rollout.kuka_rollout_bf16_plain(*(a.cpu() for a in args), **kw)
+        torch.cuda.synchronize()
+        finite = all(bool(torch.isfinite(t).all()) for t in got)
+        e_plain, e_f32, e_sep = rel(got, ref), rel(got, out32), rel(out32, ref)
+        a_plain = max(float((g - r).abs().max()) for g, r in zip(got, ref))
+        n = sum(g.numel() for g in got)
+        same = sum(int((g == r).sum()) for g, r in zip(got, ref)) / n
+        same_cpu = sum(int((r.cpu() == c).sum()) for r, c in zip(ref, cpu_ref)) / n
+        limit = BF16_LIMITS[label]
+        ok = finite and e_plain <= limit and same >= BF16_SAME_MIN and e_sep > limit
+        host_us, kernel_us = host_and_kernel_us(call, 500)
+        host32, kernel32 = host_and_kernel_us(call32, 500)
+        ms, ms32, plain_ms = cuda_ms(call, 50), cuda_ms(call32, 50), cuda_ms(plain, 2, warmup=1)
+        bound = roofline(args, got, count_ops(plain))
+        print(f"bf16: rollout_bf16 {label} (integrator {integ}, {lead or (1,)} x {A} alphas x {M} "
+              f"blocks x {N // M} steps): max abs err against its plain version on the card "
+              f"{a_plain:.3e}, over max(|x|, 1) {e_plain:.3e} (limit {limit:g}); outputs bit "
+              f"for bit the plain version's {same:.4f} (at least {BF16_SAME_MIN:g}); rollout.cu's "
+              f"float32 against the plain version {e_sep:.3e} (outside the limit: the limit "
+              f"separates the precisions); {'ok' if ok else 'FAILED'}; this kernel against "
+              f"rollout.cu {e_f32:.3e} (the one-step oracle's {BF16_STEP_BAND:g}: "
+              f"{'within' if e_f32 <= BF16_STEP_BAND else 'outside'}); the plain version on the "
+              f"card the CPU's "
+              f"{same_cpu:.4f}; {ms:.4f} ms vs rollout.cu {ms32:.4f} ms (CUDA events, 50 calls), "
+              f"plain {plain_ms:.3f} ms; kernel alone {kernel_us:.2f} us vs rollout.cu "
+              f"{kernel32:.2f} us (CUDA-graph replay), host {host_us:.2f} vs {host32:.2f} us per "
+              f"enqueue; bound {bound['bound_ms']:.3e} ms by {bound['bound_by']} "
+              f"({bound['bytes']} B, {bound['operations']} operations, "
+              f"{bound['operations_bf16']} of them bfloat16, each over its type's peak) "
+              f"on {card}", flush=True)
+        if not ok:
+            bad.append(label)
+        kern["max_abs_err"] = max(kern["max_abs_err"], a_plain)
+        kern[f"max_abs_err_over_max_x_{label}"] = e_plain
+        kern[f"max_abs_err_over_max_x_rollout_f32_{label}"] = e_f32
+        kern[f"max_abs_err_over_max_x_f32_vs_plain_{label}"] = e_sep
+        kern[f"kernel_us_rollout_f32_{label}"] = kernel32
+        kern[f"host_us_rollout_f32_{label}"] = host32
+        kern[f"ms_rollout_f32_{label}"] = ms32
+        if label == "wafr":
+            kern.update(ms=ms, plain_ms=plain_ms, host_us=host_us, kernel_us=kernel_us, **bound)
+        else:
+            kern.update({f"ms_{label}": ms, f"plain_ms_{label}": plain_ms,
+                         f"host_us_{label}": host_us, f"kernel_us_{label}": kernel_us,
+                         f"bound_ms_{label}": bound["bound_ms"],
+                         f"bound_by_{label}": bound["bound_by"]})
+        del args, got, ref, out32, cpu_ref
+    kern["ok"] = not bad
+    if bad:
+        fail(f"bf16: the bfloat16 rollout kernel fails its check at {bad}")
+
+    # 2. the WAFR solves: the solve phase's cold start and goals
+    prob = kuka_ee()
+    base = dataclasses.replace(prob.cfg, max_iter=N_ITERS, tol_cost=0.0, pallas_riccati=True)
+    x_start = (np.random.default_rng(0).standard_normal(14) * 0.3).astype(np.float32)
+    x0 = np.broadcast_to(x_start, (N, 14)).copy()
+    u0 = np.zeros((N, 7), np.float32)
+    goals = [[0.0, -0.55, 0.35]] + [list(figure8_goal(MPC_DT * i)[0]) for i in range(1, N_WARM + 1)]
+    goals_dev = [ee_goal(gl, device=dev) for gl in goals]
+    x0_dev, u0_dev = torch.as_tensor(x0, device=dev), torch.as_tensor(u0, device=dev)
+
+    def warm_ms(solver, cold):
+        one = lambda: solver(cold.x, cold.u, goals_dev[1], P0=cold.P, p0=cold.p, d0=cold.d)
+        one()
+        torch.cuda.synchronize()
+        _, syncs = count_syncs(torch, one)
+        if solver.host_syncs or syncs:
+            fail("bf16: a warm re-solve read the host")
+        times = event_times(one, N_TIMED)
+        return float(np.median(times)), min(times), max(times), solver.graphs.stats()[-1]
+
+    body = lambda g: g.body_nodes[0] if g.body_nodes else None
+    solver32 = make_ilqr_solver(prob.plant, prob.cost, base)
+    solver32(x0_dev, u0_dev, goals_dev[0], initial_rollout=True)      # the capture
+    cold32 = solver32(x0_dev, u0_dev, goals_dev[0], initial_rollout=True)
+    ms32, lo32, hi32, g32 = warm_ms(solver32, cold32)
+    print(f"bf16: float32 WAFR solve on the card: alphas "
+          f"{cold32.alpha_trace[1:int(cold32.iters) + 1].tolist()}, J "
+          f"{np.array2string(cold32.J_trace.cpu().numpy(), precision=4)}; warm {N_ITERS}-iteration "
+          f"re-solve median {ms32:.3f} ms (min {lo32:.3f}, max {hi32:.3f}), iteration body "
+          f"{body(g32)} nodes on {card}", flush=True)
+    by_path, summary, caches = {}, {"f32": dict(warm_ms=ms32, body_nodes=g32.body_nodes)}, {}
+    for path, flags in (("wafr_bf16", dict(bf16_rollout=True, bf16_cost=True)),
+                        ("wafr_bf16_cost", dict(bf16_cost=True))):
+        cfg = dataclasses.replace(base, **flags)
+        solver = make_ilqr_solver(prob.plant, prob.cost, cfg)
+
+        def track():
+            outs = [solver(x0_dev, u0_dev, goals_dev[0], initial_rollout=True)]
+            for goal in goals_dev[1:]:
+                prev = outs[-1]
+                outs.append(solver(prev.x, prev.u, goal, P0=prev.P, p0=prev.p, d0=prev.d))
+            return outs
+
+        t0 = time.perf_counter()
+        track()                                                   # both captures
+        torch.cuda.synchronize()
+        capture_s = time.perf_counter() - t0
+        reset_counts()
+        outs, syncs = count_syncs(torch, track)
+        torch.cuda.synchronize()
+        counts = by_path[path] = read_counts()
+        print(f"bf16: {path}: kernel launches during the cold + {N_WARM} warm solves (graph "
+              f"replays, counted on the device): {json.dumps(counts)}; both graphs captured in "
+              f"{capture_s:.1f} s; host reads {solver.host_syncs} (torch sync-debug count "
+              f"{syncs})", flush=True)
+        require_launched(path, counts)
+        idle = "rollout" if flags.get("bf16_rollout") else "rollout_bf16"
+        if counts[idle]:
+            fail(f"{path}: the {idle} kernel ran on this path ({counts})")
+        if solver.host_syncs or syncs:
+            fail(f"{path}: the replayed solves read the host")
+        for i, out in enumerate(outs):
+            it = int(out.iters)
+            jt = out.J_trace.cpu().numpy()[: it + 1]
+            kind = "cold" if i == 0 else f"warm{i}"
+            print(f"bf16: {path} {kind}: J {np.array2string(jt, precision=4)} alphas "
+                  f"{out.alpha_trace.cpu().numpy()[1: it + 1].tolist()} max_defect "
+                  f"{float(out.max_defect):.3e}", flush=True)
+            if not np.all(np.isfinite(jt)) or np.any(np.diff(jt) > 0):
+                fail(f"{path} {kind} solve: J non-finite or increasing")
+        cold = outs[0]
+        if not float(cold.J) < float(cold.J_trace[0]):
+            fail(f"{path}: the cold solve did not reduce J below J0")
+        # the card against CPU tensors: the same bfloat16 semantics
+        t0 = time.perf_counter()
+        cpu = make_ilqr_solver(prob.plant, prob.cost, cfg)(
+            torch.as_tensor(x0), torch.as_tensor(u0), ee_goal(goals[0], device="cpu"),
+            initial_rollout=True)
+        read = hold_to_cpu(np, path, cold, cpu, bands=(BF16_CPU_RTOL, BF16_CPU_RTOL, BF16_J_RTOL))
+        print(f"bf16: {path} card vs CPU ({time.perf_counter() - t0:.1f} s on the CPU; J band "
+              f"{BF16_CPU_RTOL:.2e}, after a parting {BF16_J_RTOL:g}): {read}; max |x_card - "
+              f"x_cpu| {float((cold.x.cpu() - cpu.x).abs().max()):.3e} on {card}", flush=True)
+        # against the float32 solve on the card: its decisions up to the
+        # float32 trace's first near tie at one bfloat16 rounding, J within
+        # the JAX test's band until the two part; the JAX test's three bands
+        # over the whole solve read beside
+        k = min(int(cold.iters), int(cold32.iters))
+        part = first_difference(cold.alpha_trace.cpu(), cold32.alpha_trace.cpu(), k)
+        gap = trace_gap(cold.J_trace, cold32.J_trace, k)
+        upto = k + 1 if part is None else part
+        x_gap = float((cold.x - cold32.x).abs().max())
+        tie32 = first_tie(np, cold32, BF16_CPU_RTOL)
+        read = (f"alphas {cold.alpha_trace[1:k + 1].tolist()} vs "
+                f"{cold32.alpha_trace[1:k + 1].tolist()}, first difference at {part} (first "
+                f"near tie of the float32 trace at one bfloat16 rounding: {tie32}); J gap by "
+                f"iteration {at_iters(gap)}, max before the parting {gap[:upto].max():.3e}, over "
+                f"the solve {gap.max():.3e}; max |x - x_f32| {x_gap:.3e}; the JAX test's bands "
+                f"(the same alphas; J {BF16_J_RTOL:g}; x {BF16_X_ATOL:g}): "
+                f"{'met' if part is None else 'alphas part'}, "
+                f"{'met' if gap.max() <= BF16_J_RTOL else 'J outside'}, "
+                f"{'met' if x_gap <= BF16_X_ATOL else 'x outside'}")
+        print(f"bf16: {path} against the float32 solve on the card: {read} on {card}",
+              flush=True)
+        if (part is not None and part < tie32) or gap[:upto].max() > BF16_J_RTOL:
+            fail(f"{path}: the bfloat16 solve parts from the float32 one before the float32 "
+                 f"trace's first near tie, or its J leaves the band before they part: {read}")
+        ms, lo, hi, g = warm_ms(solver, cold)
+        print(f"bf16: {path} warm {N_ITERS}-iteration re-solve (one graph replay): median "
+              f"{ms:.3f} ms (min {lo:.3f}, max {hi:.3f}) against the float32 path's {ms32:.3f} ms "
+              f"in this run{f' (timing phase {kuka_warm_ms:.3f})' if kuka_warm_ms else ''}; "
+              f"iteration body {body(g)} nodes against {body(g32)}; graph "
+              f"{g.nodes} nodes captured in {g.seconds:.2f} s on {card}", flush=True)
+        summary[path] = dict(warm_ms=ms, body_nodes=g.body_nodes, part=part,
+                             j_gap=float(gap.max()), x_gap=x_gap)
+        caches[f"{path} solver"] = solver.graphs
+    caches["bf16 phase float32 solver"] = solver32.graphs
+
+    # 3. batched 6-iteration solves: float32, bf16_cost, both, in one run
+    tile = lambda t, B: t[None].expand((B,) + t.shape).contiguous()
+    per_b, stages = {}, {}
+    for variant, flags in (("f32", {}), ("bf16_cost", dict(bf16_cost=True)),
+                           ("bf16", dict(bf16_rollout=True, bf16_cost=True))):
+        cfg6 = dataclasses.replace(base, **flags)
+        solve6 = make_batched_solver(prob.plant, prob.cost, cfg6)
+        for Bt in BATCH_SIZES:
+            xs, us, gs = tile(cold32.x, Bt), tile(cold32.u, Bt), batch_goals(torch, np, Bt, None, dev)
+            call = lambda: solve6(xs, us, gs)
+            call()                                                 # the capture
+            torch.cuda.synchronize()
+            if variant == "bf16" and Bt == BATCH_STAGES:
+                reset_counts()
+                out = call()
+                torch.cuda.synchronize()
+                by_path["wafr_batched_bf16"] = read_counts()
+                require_launched("wafr_batched_bf16", by_path["wafr_batched_bf16"])
+                if by_path["wafr_batched_bf16"]["rollout"]:
+                    fail(f"wafr_batched_bf16: rollout.cu ran ({by_path['wafr_batched_bf16']})")
+            out = call()
+            if not bool(torch.isfinite(out.J).all()):
+                fail(f"bf16: batched {variant} at B={Bt}: non-finite J")
+            times = event_times(call, BATCH_TIMED)
+            ms = float(np.median(times))
+            per_b[(variant, Bt)] = dict(ms=ms, solves_per_s=Bt / ms * 1e3,
+                                        nodes=solve6.solver.graphs.stats()[-1].nodes)
+            if Bt == BATCH_STAGES:
+                stages[variant] = batched_stages(torch, dev, solve6.solver, cfg6, xs, us, gs)
+            del xs, us, gs, out
+            torch.cuda.empty_cache()
+        del solve6
+        torch.cuda.empty_cache()
+    for variant in ("f32", "bf16_cost", "bf16"):
+        print(f"bf16: batched {N_ITERS}-iteration WAFR solves, {variant}: " + "; ".join(
+            f"B={Bt} {per_b[(variant, Bt)]['ms']:.3f} ms (median of {BATCH_TIMED}), "
+            f"{per_b[(variant, Bt)]['solves_per_s']:.0f} solves/s, graph "
+            f"{per_b[(variant, Bt)]['nodes']} nodes" for Bt in BATCH_SIZES) + f" on {card}",
+            flush=True)
+        print(f"bf16: stages of one batched iteration at B={BATCH_STAGES}, {variant} (eager, "
+              "CUDA events, ms): " + "; ".join(f"{k.strip()} {v:.3f}"
+                                               for k, v in stages[variant].items())
+              + f" on {card}", flush=True)
+    print(f"bf16: launches of one batched {N_ITERS}-iteration solve with both flags at "
+          f"B={BATCH_STAGES}: {json.dumps(by_path['wafr_batched_bf16'])}", flush=True)
+    summary["batched"] = {f"{v}_b{B}": r["solves_per_s"] for (v, B), r in per_b.items()}
+    print(f"bf16: phase took {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return by_path, kern, summary, caches
 
 
 def constrained_problems(np):
@@ -2552,7 +2880,7 @@ def batched_stages(torch, dev, solver, cfg, x, u, goals):
     B, N, n = x.shape
     w = weights_of(weights_tensor(None, dev), x)
     dims = goal_dims(goals)
-    quad, stage = per_scenario(solver.cost.quad, dims), per_scenario(solver.cost.stage, dims)
+    quad, stage = per_scenario(solver.cost.quad, dims), per_scenario(solver.stage, dims)
     ks = torch.arange(N, device=dev)
     AB, H, g = _derivatives(cfg, solver.step_jac, quad, x, u, goals, w)
     zeros = x.new_zeros
@@ -2571,7 +2899,7 @@ def batched_stages(torch, dev, solver, cfg, x, u, goals):
         "  cost H/g (vmapped)": cuda_ms(lambda: quad(x, u, ks, goals, w), 5),
         "backward pass (Riccati kernel)": cuda_ms(back, 5),
         "forward pass": cuda_ms(lambda: forward_pass(
-            cfg, solver.step_fn, stage_fn, x, u, zeros(B, N, n), bp.K, bp.du, bp.ApBK, bp.Bdu, x,
+            cfg, solver.step_fwd, stage_fn, x, u, zeros(B, N, n), bp.K, bp.du, bp.ApBK, bp.Bdu, x,
             alphas, fused_sim=solver.fused_sim), 5),
         "  sweep (63 baddbmm)": cuda_ms(lambda: forward_sweep(
             cfg, bp.ApBK, bp.Bdu, zeros(B, N, n), x, x, alphas), 5),
@@ -2990,7 +3318,8 @@ def bus_round_trip(PubSub, port):
 def runtime_phase(torch, np, dev, card):
     """The four-node stack of examples/pick_n_place.py on a loopback bus:
     solver, runner, simulator (on the card) and the pick-and-place goal node,
-    one thread each, for RT_SECONDS, with the launch counters."""
+    one thread each, for RT_SECONDS and until the plant's clock reaches
+    RT_PLANT_S (at most RT_MAX_SECONDS), with the launch counters."""
     import threading
 
     from parallel_ddp_tpu_torch.mpc.driver import MPCConfig, MPCController
@@ -3054,9 +3383,13 @@ def runtime_phase(torch, np, dev, card):
     threads = [threading.Thread(target=node.run, args=(stop,), daemon=True)
                for node in (solver, runner, sim, goal_node)]
     try:
+        t_run = time.perf_counter()
         for th in threads:
             th.start()
         time.sleep(RT_SECONDS)
+        while sim.t < RT_PLANT_S and time.perf_counter() - t_run < RT_MAX_SECONDS:
+            time.sleep(0.05)
+        run_s = time.perf_counter() - t_run
     finally:
         stop.set()
         for th in threads:
@@ -3081,7 +3414,7 @@ def runtime_phase(torch, np, dev, card):
     new_captures = solver.captures() - captured
     reads = solver.host_reads / max(solver.solve_count, 1)
     sent = buses["goal"].sent
-    print(f"runtime: {RT_SECONDS:g} s of the four-node stack after a {warm_s:.2f} s warm-up "
+    print(f"runtime: {run_s:.2f} s of the four-node stack after a {warm_s:.2f} s warm-up "
           f"({captured} graphs captured): {solver.solve_count} solves ({solver.fail_count} "
           f"failed), solve ms median {float(np.median(solve_ms)):.3f}, p99 "
           f"{float(np.percentile(solve_ms, 99)):.3f}, max {float(solve_ms.max()):.3f} "
@@ -3092,15 +3425,17 @@ def runtime_phase(torch, np, dev, card):
           f"{(stamps.size - 1) / span:.1f} per second, {runner.overrun_count} overruns, gap "
           f"between commands median {float(np.median(gaps_ms)):.3f} ms, p99 "
           f"{float(np.percentile(gaps_ms, 99)):.3f} ms, max {float(gaps_ms.max()):.3f} ms; "
-          f"plant {sim.step_count} steps at t = {sim.t:.3f} s; waypoints settled {len(settles)} "
-          f"({[round(v, 3) for v in settles]} s of plant time); kernel launches on the path: "
+          f"plant {sim.step_count} steps at t = {sim.t:.3f} s ({sim.t / run_s:.3f} of real "
+          f"time); waypoints settled {len(settles)} ({[round(v, 3) for v in settles]} s of "
+          f"plant time); kernel launches on the path: "
           f"{json.dumps(counts)}", flush=True)
     if solver.host_reads != solver.solve_count:
         fail(f"runtime: {solver.host_reads} host reads for {solver.solve_count} solves (one each)")
     if new_captures:
         fail(f"runtime: {new_captures} graphs captured after the warm-up")
     if not settles or not sent.get(pubsub.Channels.GOAL):
-        fail("runtime: no waypoint settled (the goal, cost set and solver params never changed)")
+        fail(f"runtime: no waypoint settled in {sim.t:.3f} s of plant time ({run_s:.1f} s of wall "
+             f"time; the goal, cost set and solver params never changed)")
     if not np.all(np.isfinite(sim.x)):
         fail("runtime: non-finite plant state")
     require_launched("runtime", counts)
@@ -3156,6 +3491,10 @@ def main():
         assoc_phase(torch, np, dev, card)
         print("stopped after the assoc phase (--assoc-only): no result line", flush=True)
         return
+    if sys.argv[1:] == ["--bf16-only"]:         # the bfloat16 forward path's phase alone
+        bf16_phase(torch, np, dev, card)
+        print("stopped after the bf16 phase (--bf16-only): no result line", flush=True)
+        return
     kernels = kernel_phase(torch, np, dev)
     if sys.argv[1:] == ["--kernels-only"]:      # a short run while working on a kernel
         print("stopped after the kernel phase (--kernels-only): no result line", flush=True)
@@ -3165,6 +3504,8 @@ def main():
     plant_launches, plant_summary = plants_phase(torch, np, dev, card)
     urdf_launches, urdf_summary = urdf_phase(torch, np, dev, card, median_ms)
     assoc_launches, assoc_summary, assoc_caches = assoc_phase(torch, np, dev, card, median_ms)
+    bf16_launches, bf16_kernel, bf16_summary, bf16_caches = bf16_phase(torch, np, dev, card,
+                                                                       median_ms)
     al_launches, al_summary, al_caches = constraints_phase(torch, np, dev, card)
     fig8_launches, control_step, runner, per_step, fig8_caches, fleet = fig8_phase(
         torch, np, dev, card)
@@ -3172,7 +3513,8 @@ def main():
                                                             kernels, card)
     pp_launches, pp_summary, pp_caches = pickplace_phase(torch, np, dev, card)
     rt_launches, rt_summary, rt_caches = runtime_phase(torch, np, dev, card)
-    caches = {"WAFR solver": solver.graphs, **assoc_caches, **al_caches, **fig8_caches, **batched_caches,
+    kernels.append(bf16_kernel)
+    caches = {"WAFR solver": solver.graphs, **assoc_caches, **bf16_caches, **al_caches, **fig8_caches, **batched_caches,
               **pp_caches, **rt_caches}
     chain = next(r for r in kernels if r["name"] == "sim_chain")
     chain["max_abs_err"] = max(chain["max_abs_err"], runner.pop("max_abs_err"))
@@ -3202,7 +3544,7 @@ def main():
     # launches: the kernel's count on the path LAUNCHES_FROM names (the fig-8
     # closed loop where that runs it); launches_<path>: every path's own count
     by_path = {"wafr_solve": launches, **plant_launches, **urdf_launches, **assoc_launches,
-               **al_launches,
+               **bf16_launches, **al_launches,
                **fig8_launches,
                "wafr_batched": batched_launches, **pp_launches, **rt_launches}
     line = {"kernels": [
@@ -3235,6 +3577,11 @@ def main():
           "nodes; one attempt exact / torch block sweep / riccati.cu: " + "; ".join(
               f"N={Nh} " + " / ".join(f"{v:.3f}" for v in r["ms"].values()) + " ms"
               for Nh, r in assoc_summary["per_n"].items()) + f" on {card}", flush=True)
+    print(f"bf16: warm {N_ITERS}-iteration re-solve: float32 {bf16_summary['f32']['warm_ms']:.3f} "
+          f"ms, both flags {bf16_summary['wafr_bf16']['warm_ms']:.3f} ms, bf16_cost alone "
+          f"{bf16_summary['wafr_bf16_cost']['warm_ms']:.3f} ms; batched solves/s " + ", ".join(
+              f"{k} {v:.0f}" for k, v in bf16_summary["batched"].items()) + f" on {card}",
+          flush=True)
     print(f"constraints: inner-solve replay {al_summary['inner_ms']['cold']:.3f} ms cold, "
           f"{al_summary['inner_ms']['warm']:.3f} ms warm; constrained batched B={AL_BATCH} "
           f"{al_summary['batched_ms']:.3f} ms; AL MPC period {al_summary['period_ms']:.3f} ms "

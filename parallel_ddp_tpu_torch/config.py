@@ -11,9 +11,6 @@ so a configuration maps 1:1 between the two packages (`interop.py`).
     (`weights_of`), so a new value is data, not a new CUDA graph.
   * `SolveOutput` — the result of one solve, as tensors on the solve's device.
 
-Two fields select JAX-package features that this package does not have yet
-(`bf16_rollout`, `bf16_cost`); they are
-kept so configurations map 1:1, and the solver raises if one is switched on.
 `scan_unroll` has nothing to act on here (there is no `lax.scan`).
 """
 

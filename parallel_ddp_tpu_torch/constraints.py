@@ -86,10 +86,11 @@ class BoxConstraints:
                                                 (self.x_max, 1.0, False)) if b is not None]
 
     def _tensors(self, like: torch.Tensor):
-        """The bounds as tensors on like's device and dtype, made once:
-        (column of [x; u] each row reads, its sign, its bound, whether it is a
-        control row, u_min, u_max)."""
-        key = (like.device, like.dtype)
+        """The bounds as tensors on like's device and dtype (float32 beside
+        bfloat16, as the JAX package's numpy bounds), made once: (column of
+        [x; u] each row reads, its sign, its bound, whether it is a control
+        row, u_min, u_max)."""
+        key = (like.device, torch.promote_types(like.dtype, torch.float32))
         found = self._consts.get(key)
         if found is None:
             n = self.n_state
@@ -97,7 +98,7 @@ class BoxConstraints:
                      np.full(len(b), is_u)) for b, s, is_u in self._groups()]
             cols, signs, bounds, is_u = (np.concatenate(r) for r in zip(*rows))
             on = dict(device=like.device)
-            f = dict(dtype=like.dtype, **on)
+            f = dict(dtype=key[1], **on)
             found = self._consts[key] = (
                 torch.as_tensor(cols, dtype=torch.int64, **on), torch.as_tensor(signs, **f),
                 torch.as_tensor(bounds, **f), torch.as_tensor(is_u, **on),

@@ -23,6 +23,11 @@ goal: {"ee_goal": (6,), "x_target": (n_state,)} tensors, optionally
 w: the weights as data, never baked into the operations: a `CostWeights` of
 0-d tensors (the solver's views of its weights tensor, `config.weights_of`),
 or of numbers, which are put on x's device first.
+
+On bfloat16 x and u (`SolverConfig.bf16_cost`) the stage keeps the JAX
+package's dtypes: what meets the float32 goal or limits is float32, and a
+weight times a bfloat16 term (|u|^2, the EE-velocity terms) is bfloat16, as
+a JAX Python-float weight is weakly typed.
 """
 
 from __future__ import annotations
@@ -77,10 +82,11 @@ def ee_cost(
     limit_cache = {}
 
     def _limits(like):
-        key = (like.device, like.dtype)
+        # float32 beside a bfloat16 x, as the JAX package's numpy limits
+        key = (like.device, torch.promote_types(like.dtype, torch.float32))
         if key not in limit_cache:
             limit_cache[key] = tuple(
-                torch.as_tensor(np.asarray(a), dtype=like.dtype, device=like.device)
+                torch.as_tensor(np.asarray(a), dtype=key[1], device=like.device)
                 for a in (pos_limits, vel_limits, torque_limits))
         return limit_cache[key]
 
@@ -110,7 +116,7 @@ def ee_cost(
         quad = (w_pos * delta * delta).sum(-1)
         if use_ee_vel:
             eev = (ee_jac(q) @ qd[..., None])[..., 0] - goal.get("ee_vel_goal", 0.0)
-            quad = quad + (w_vel * eev * eev).sum(-1)
+            quad = quad + (w_vel.to(eev.dtype) * eev * eev).sum(-1)
         return 0.5 * quad, delta, w_pos, w_vel
 
     def _limit_terms(x, u, w, level):
@@ -138,7 +144,8 @@ def ee_cost(
         if use_smooth_abs:
             a = smooth_abs_alpha
             ee_c = torch.sqrt(2.0 * ee_c + a * a) - a
-        cost = ee_c + 0.5 * _rk(k, w) * (u * u).sum(-1)
+        u_sq = (u * u).sum(-1)
+        cost = ee_c + (0.5 * _rk(k, w)).to(u_sq.dtype) * u_sq
         qq, qqd = _nominal_weights(k, w)
         dxt = x - goal["x_target"]
         cost = cost + 0.5 * (

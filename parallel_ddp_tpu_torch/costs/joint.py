@@ -57,15 +57,17 @@ def _make(name: str, num_time_steps: int, diags: Callable) -> CostModel:
 
 
 def fixed_diag_cost(name: str, num_time_steps: int, q_diag, r_diag, qf_diag) -> CostModel:
-    """Cost with fixed (not runtime-tunable) diagonal weights, made into
-    tensors once per device and dtype."""
+    """Cost with fixed (not runtime-tunable) diagonal float32 weights, made
+    into tensors once per device and dtype: like's, but never below float32
+    (the JAX package's numpy float32 weights, which keep a bfloat16 stage's
+    products in float32)."""
     host = tuple(np.asarray(a, np.float32) for a in (q_diag, r_diag, qf_diag))
     cache = {}
 
     def diags(w, like):
-        key = (like.device, like.dtype)
+        key = (like.device, torch.promote_types(like.dtype, torch.float32))
         if key not in cache:
-            cache[key] = tuple(torch.as_tensor(a, dtype=like.dtype, device=like.device)
+            cache[key] = tuple(torch.as_tensor(a, dtype=key[1], device=like.device)
                                for a in host)
         return cache[key]
 

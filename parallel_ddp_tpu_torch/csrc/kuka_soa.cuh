@@ -87,10 +87,28 @@ __device__ __forceinline__ Dual s_sqrt(Dual a) {
   return Dual(r, a.d * (0.5f / r));
 }
 
+// How a chain constant (a float of the device array) enters an operation with
+// a channel of type T, rounded as models/kuka/soa.py's PyTorch ops round it:
+//   factor  in a product with a channel.  PyTorch multiplies a tensor by a
+//           Python float at float precision, so a narrower channel type
+//           (bf16_scalar.cuh) keeps the constant a float; float and Dual take
+//           it as T, which is the same product.
+//   term    added to a channel where the Python core first made the constant
+//           a channel of its own (`const + zero`, rounded to the channel's
+//           type): a narrower type rounds it first; float and Dual add it as
+//           the float it is, the same sum.
+template <typename T>
+struct KcAs {
+  typedef T factor;
+  typedef float term;
+};
+
 // --------------------------------------------------------------- 3-vectors --
 
-template <typename T>
-__device__ __forceinline__ void v_cross(const T a[3], const T b[3], T out[3]) {
+// a and b may differ in type from out: a chain constant as a product's factor
+// (KcAs<T>::factor) against a channel
+template <typename A, typename B, typename T>
+__device__ __forceinline__ void v_cross(const A a[3], const B b[3], T out[3]) {
   T o0 = a[1] * b[2] - a[2] * b[1];
   T o1 = a[2] * b[0] - a[0] * b[2];
   T o2 = a[0] * b[1] - a[1] * b[0];
@@ -155,7 +173,9 @@ __device__ __forceinline__ void local_rot(const float* __restrict__ cc, int i, T
 template <typename T>
 __device__ __forceinline__ void force_to_parent(const T r[3][3], const float* __restrict__ p,
                                                 T n[3], T f[3]) {
-  T fp[3], np_[3], pv[3] = {T(p[0]), T(p[1]), T(p[2])}, pxf[3];
+  typedef typename KcAs<T>::factor C;
+  T fp[3], np_[3], pxf[3];
+  C pv[3] = {C(p[0]), C(p[1]), C(p[2])};
   m_vec(r, f, fp);
   m_vec(r, n, np_);
   v_cross(pv, fp, pxf);

@@ -139,7 +139,8 @@ __device__ void kg_link(const float* __restrict__ cc, KgCol<T> col, int L, int t
     T r[3][3];
     kg_rot(cc, col, i, r, tb);
     const float* p = cc + KC_P + 3 * i;
-    T pv[3] = {T(p[0]), T(p[1]), T(p[2])};
+    typedef typename KcAs<T>::factor C;
+    C pv[3] = {C(p[0]), C(p[1]), C(p[2])};
     T t[3];
     v_cross(w, pv, t);
     t[0] = v[0] + t[0]; t[1] = v[1] + t[1]; t[2] = v[2] + t[2];
@@ -248,13 +249,14 @@ __device__ void kg_composites(const float* __restrict__ cc, KgCol<T> col, int tb
     m_mul(std_, rt, sdr);
     m_mul(rtd, rt, br);
     const float* ii = cc + KC_I + 36 * (i - 1);
+    typedef typename KcAs<T>::term Term;
 #pragma unroll
     for (int a = 0; a < 3; ++a)
 #pragma unroll
       for (int b = 0; b < 3; ++b) {
-        A[a][b] = ii[6 * a + b] + (((tl[a][b] + e_m[a][b]) + e_m[b][a]) + sds[a][b]);
-        Bm[a][b] = ii[6 * a + 3 + b] + (tr[a][b] + sdr[a][b]);
-        D[a][b] = ii[6 * (3 + a) + 3 + b] + br[a][b];
+        A[a][b] = Term(ii[6 * a + b]) + (((tl[a][b] + e_m[a][b]) + e_m[b][a]) + sds[a][b]);
+        Bm[a][b] = Term(ii[6 * a + 3 + b]) + (tr[a][b] + sdr[a][b]);
+        D[a][b] = Term(ii[6 * (3 + a) + 3 + b]) + br[a][b];
       }
 #pragma unroll
     for (int k = 0; k < 3; ++k) {

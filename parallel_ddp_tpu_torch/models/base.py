@@ -36,6 +36,9 @@ class Plant:
         m_blocks_f, num_alpha) -> fused(x_swept, u, K, du, xp, alphas) ->
         (x_next_all, u_new_all): the whole multiple-shooting forward
         simulation in one op (`ops/cuda_rollout.py`).
+      fused_rollout_bf16: the same factory and contract with each integrator
+        step in bfloat16 (`SolverConfig.bf16_rollout`, which never consults
+        `fused_rollout`); without it the solver loops over its bfloat16 step.
       sim_chain: optional factory (integrator, dt) -> SimChain
         (`ops/cuda_sim_chain.py`): T dependent integrator steps as one op,
         under given controls (`open_loop`) or under the trajectory runner's
@@ -59,6 +62,7 @@ class Plant:
     num_alpha_default: int = 32
     batched_step_jac: Optional[Callable[[int, float], Callable]] = None
     fused_rollout: Optional[Callable[[int, float, int, int, int], Callable]] = None
+    fused_rollout_bf16: Optional[Callable[[int, float, int, int, int], Callable]] = None
     sim_chain: Optional[Callable[[int, float], NamedTuple]] = None
 
     def __hash__(self):

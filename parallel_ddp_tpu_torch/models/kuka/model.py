@@ -22,7 +22,8 @@ class KukaParams:
     #          dynamics run through the forward-dynamics op (ops/cuda_rbd.py
     #          kuka_qdd), the solver's derivative stage through the
     #          RBD-Jacobian op (same module), the multiple-shooting forward
-    #          simulation through the rollout op (ops/cuda_rollout.py) and
+    #          simulation through the rollout op (ops/cuda_rollout.py; its
+    #          bfloat16 entry under SolverConfig.bf16_rollout) and
     #          chains of plant steps (MPC warm start, cold rollout, plant
     #          substeps) through the chain op (ops/cuda_sim_chain.py).  Each
     #          op launches its CUDA kernel on CUDA tensors and uses its plain
@@ -67,11 +68,12 @@ def kuka(params: KukaParams | None = None) -> Plant:
     rbd = _core(params.ee_type, params.gravity, core)
     dynamics = rbd.forward_dynamics
     batched_step_jac = None
-    fused_rollout = None
+    fused_rollout = fused_rollout_bf16 = None
     sim_chain = None
     if core == "cuda":
         from parallel_ddp_tpu_torch.ops.cuda_rbd import kuka_qdd, make_kuka_ab
-        from parallel_ddp_tpu_torch.ops.cuda_rollout import make_kuka_fused_rollout
+        from parallel_ddp_tpu_torch.ops.cuda_rollout import (make_kuka_bf16_rollout,
+                                                             make_kuka_fused_rollout)
         from parallel_ddp_tpu_torch.ops.cuda_sim_chain import make_kuka_sim_chain
 
         dynamics = functools.partial(kuka_qdd, ee_type=params.ee_type,
@@ -83,6 +85,13 @@ def kuka(params: KukaParams | None = None) -> Plant:
         def fused_rollout(integrator, dt, num_time_steps, m_blocks_f, num_alpha,
                           _p=params):
             return make_kuka_fused_rollout(
+                _p.ee_type, _p.gravity, integrator, dt,
+                num_time_steps, m_blocks_f, num_alpha,
+            )
+
+        def fused_rollout_bf16(integrator, dt, num_time_steps, m_blocks_f, num_alpha,
+                               _p=params):
+            return make_kuka_bf16_rollout(
                 _p.ee_type, _p.gravity, integrator, dt,
                 num_time_steps, m_blocks_f, num_alpha,
             )
@@ -104,5 +113,6 @@ def kuka(params: KukaParams | None = None) -> Plant:
         num_alpha_default=16,
         batched_step_jac=batched_step_jac,
         fused_rollout=fused_rollout,
+        fused_rollout_bf16=fused_rollout_bf16,
         sim_chain=sim_chain,
     )

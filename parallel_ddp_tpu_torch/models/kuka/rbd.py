@@ -52,8 +52,9 @@ class SerialArmRBD:
     offset in the last link frame: the quantities a URDF provides
     (`models/urdf.py`).  joint_types: string of 'r' (revolute) / 'p'
     (prismatic); default all-revolute.  Every method takes any leading batch
-    dims and computes in the dtype of its input; the constants become
-    tensors once per (device, dtype).
+    dims and computes in the dtype of its input (float32 for a bfloat16
+    input, as in the JAX package: its float32 constants promote it); the
+    constants become tensors once per (device, dtype).
     """
 
     def __init__(self, r_tree, p_tree, i_spatial, ee_offset, gravity,
@@ -74,13 +75,14 @@ class SerialArmRBD:
         self._tensors = {}
 
     def _consts(self, like):
-        """The constants as tensors on like's device in like's dtype, made
-        once per (device, dtype): a copy from the host on every call would
-        synchronise the stream."""
-        key = (like.device, like.dtype)
+        """The constants as tensors on like's device in like's dtype, but
+        float32 below it (the JAX package's float32 constants, against which
+        a bfloat16 input promotes), made once per (device, dtype): a copy from
+        the host on every call would synchronise the stream."""
+        key = (like.device, torch.promote_types(like.dtype, torch.float32))
         found = self._tensors.get(key)
         if found is None:
-            n, f = self.n, dict(dtype=like.dtype, device=like.device)
+            n, f = self.n, dict(dtype=key[1], device=like.device)
             s = np.zeros((n, 6))
             s[np.arange(n), self._col] = 1.0
             # -crm(S_i): v x (S_i qd) = qd * (-crm(S_i) @ v), a constant map

@@ -46,6 +46,8 @@ _SIGNATURES = {
     # consts, x_swept, u, K, du, xp, alphas, skip, xout, uout,
     # n_scen, n_alpha, n_blocks, nf, integrator, h, h_half, h_sixth, stream
     "pddp_rollout": (_P,) * 10 + (_I, _I, _I, _I, _I, _F, _F, _F, _P),
+    # the same arguments: the step in bfloat16
+    "pddp_rollout_bf16": (_P,) * 10 + (_I, _I, _I, _I, _I, _F, _F, _F, _P),
     # seedP, seedp, rho, rho_stride, AB, H, g, d, k, P, p, K, du, ApBK, Bdu,
     # dj_lane, fail_lane, dj_total, fail_total, lanes_done, S, Mb, Nb, n, m, nf,
     # n_blocks_f, state_reg, use_defect, clocks, stream

@@ -19,6 +19,17 @@ that share the alphas and the skip mask:
 
 `skip_mask` (M, Nf) marks steps that are not simulated; it defaults to the
 horizon's last step k = N-1 (fpHelpers.cuh:235).
+
+`make_kuka_bf16_rollout` returns the same op with the integrator step in
+bfloat16 (`SolverConfig.bf16_rollout`): the feedback law stays float32, each
+step casts x and u to bfloat16 and hands x back as float32
+(`ops/integrators.py::make_bf16_step`):
+  * on CPU tensors, its plain version `kuka_rollout_bf16_plain`, the same
+    loop with the soa step made so;
+  * on CUDA tensors, the kernel's bfloat16 entry (`pddp_rollout_bf16`: the
+    group core on a bfloat16 scalar, `csrc/bf16_scalar.cuh`), or it raises.
+It stands for no Pallas kernel: the JAX package runs this step as XLA ops
+(`parallel_ddp_tpu/solver.py:124-141`).
 """
 
 from __future__ import annotations
@@ -31,7 +42,7 @@ from parallel_ddp_tpu_torch.models.base import Plant
 from parallel_ddp_tpu_torch.models.kuka import soa
 from parallel_ddp_tpu_torch.ops import build
 from parallel_ddp_tpu_torch.ops.cuda_rbd import consts_tensor
-from parallel_ddp_tpu_torch.ops.integrators import make_step
+from parallel_ddp_tpu_torch.ops.integrators import make_bf16_step, make_step
 
 NJ = 7
 NS = 14
@@ -77,14 +88,27 @@ def kuka_rollout_plain(x_swept, u, K, du, xp, alphas, skip, *, ee_type: int,
                        gravity: float, integrator: int, dt: float, m_blocks: int):
     """Plain version of `kuka_rollout_cuda` (same arguments and outputs): the
     `rollout_plain` loop over the lanes with the soa integrator step."""
+    return _lanes_plain(_kuka_step(ee_type, float(gravity), integrator, dt),
+                        x_swept, u, K, du, xp, alphas, skip, m_blocks)
+
+
+def kuka_rollout_bf16_plain(x_swept, u, K, du, xp, alphas, skip, *, ee_type: int,
+                            gravity: float, integrator: int, dt: float, m_blocks: int):
+    """Plain version of `kuka_rollout_bf16_cuda`: the same loop with the soa
+    step in bfloat16 (`make_bf16_step`)."""
+    return _lanes_plain(make_bf16_step(_kuka_step(ee_type, float(gravity), integrator, dt)),
+                        x_swept, u, K, du, xp, alphas, skip, m_blocks)
+
+
+def _lanes_plain(step, x_swept, u, K, du, xp, alphas, skip, m_blocks):
+    """`rollout_plain` over the lanes of the kernel's inputs with `step`."""
     *lead, A, N, _ = x_swept.shape
     lead = tuple(lead)
     M = m_blocks
     nf = N // M
     per_scen = lambda t, *tail: t.reshape(lead + (1, M, nf) + tail)
     return rollout_plain(
-        _kuka_step(ee_type, float(gravity), integrator, dt),
-        x_swept.reshape(lead + (A, M, nf, NS))[..., 0, :], per_scen(u, NJ),
+        step, x_swept.reshape(lead + (A, M, nf, NS))[..., 0, :], per_scen(u, NJ),
         per_scen(K, NJ, NS), per_scen(du, NJ), per_scen(xp, NS),
         alphas.to(x_swept.dtype)[:, None], skip.to(torch.bool))
 
@@ -94,6 +118,27 @@ def kuka_rollout_cuda(x_swept, u, K, du, xp, alphas, skip, *, ee_type: int,
     """Launch the rollout kernel on S = prod(...) scenarios: x_swept
     (..., A, N, 14), u (..., N, 7) etc.; alphas (A,) and skip (M, Nf) uint8
     shared; float32."""
+    out = _launch_rollout("pddp_rollout", x_swept, u, K, du, xp, alphas, skip, ee_type,
+                          gravity, integrator, dt, m_blocks)
+    kuka_rollout_cuda.counter.hit(x_swept.device)
+    return out
+
+
+def kuka_rollout_bf16_cuda(x_swept, u, K, du, xp, alphas, skip, *, ee_type: int,
+                           gravity: float, integrator: int, dt: float, m_blocks: int):
+    """Launch the rollout kernel's bfloat16 entry: `kuka_rollout_cuda`'s
+    arguments and float32 inputs and outputs, each integrator step in
+    bfloat16."""
+    out = _launch_rollout("pddp_rollout_bf16", x_swept, u, K, du, xp, alphas, skip, ee_type,
+                          gravity, integrator, dt, m_blocks)
+    kuka_rollout_bf16_cuda.counter.hit(x_swept.device)
+    return out
+
+
+def _launch_rollout(entry, x_swept, u, K, du, xp, alphas, skip, ee_type, gravity,
+                    integrator, dt, m_blocks):
+    """Check the inputs and launch the rollout kernel's `entry` into new
+    outputs."""
     *lead, A, N, _ = x_swept.shape
     lead = tuple(lead)
     S = 1
@@ -122,16 +167,16 @@ def kuka_rollout_cuda(x_swept, u, K, du, xp, alphas, skip, *, ee_type: int,
     uout = torch.empty(lead + (A, M, nf, NJ), device=x_swept.device, dtype=torch.float32)
     cc = consts_tensor(ee_type, float(gravity), x_swept.device)
     build.launch(
-        "pddp_rollout", x_swept.device,
+        entry, x_swept.device,
         cc.data_ptr(), x_swept.data_ptr(), u.data_ptr(), K.data_ptr(),
         du.data_ptr(), xp.data_ptr(), alphas.data_ptr(), skip.data_ptr(),
         xout.data_ptr(), uout.data_ptr(), S, A, M, nf, integrator,
         dt, 0.5 * dt, dt / 6.0)
-    kuka_rollout_cuda.counter.hit(x_swept.device)
     return xout, uout
 
 
 kuka_rollout_cuda.counter = build.launch_counter("rollout")
+kuka_rollout_bf16_cuda.counter = build.launch_counter("rollout_bf16")
 
 
 def make_kuka_fused_rollout(ee_type: int, gravity: float, integrator: int,
@@ -140,6 +185,21 @@ def make_kuka_fused_rollout(ee_type: int, gravity: float, integrator: int,
     """Factory for the solver hook (`Plant.fused_rollout`); see the module
     docstring for the contract.  Raises if the horizon does not split into
     `m_blocks_f` equal blocks."""
+    return _make_fused(kuka_rollout_plain, kuka_rollout_cuda, ee_type, gravity, integrator, dt,
+                       num_time_steps, m_blocks_f, num_alpha)
+
+
+def make_kuka_bf16_rollout(ee_type: int, gravity: float, integrator: int,
+                           dt: float, num_time_steps: int, m_blocks_f: int,
+                           num_alpha: int):
+    """Factory for the bfloat16 solver hook (`Plant.fused_rollout_bf16`):
+    `make_kuka_fused_rollout`'s contract with the step in bfloat16."""
+    return _make_fused(kuka_rollout_bf16_plain, kuka_rollout_bf16_cuda, ee_type, gravity,
+                       integrator, dt, num_time_steps, m_blocks_f, num_alpha)
+
+
+def _make_fused(plain, cuda, ee_type, gravity, integrator, dt, num_time_steps, m_blocks_f,
+                num_alpha):
     N, M = num_time_steps, m_blocks_f
     if N % M:
         raise ValueError(f"num_time_steps {N} not divisible by m_blocks_f {M}")
@@ -163,8 +223,8 @@ def make_kuka_fused_rollout(ee_type: int, gravity: float, integrator: int,
         kw = dict(ee_type=ee_type, gravity=gravity, integrator=integrator, dt=dt,
                   m_blocks=M)
         if dev.type == "cpu":
-            return kuka_rollout_plain(x_swept, u, K, du, xp, alphas, skip, **kw)
-        return kuka_rollout_cuda(
+            return plain(x_swept, u, K, du, xp, alphas, skip, **kw)
+        return cuda(
             x_swept.contiguous(), u.contiguous(), K.contiguous(),
             du.contiguous(), xp.contiguous(), alphas.contiguous(), skip, **kw)
 

@@ -61,6 +61,18 @@ def make_step(plant: Plant, integrator: int, dt: float) -> Callable:
     return step
 
 
+def make_bf16_step(step: Callable) -> Callable:
+    """The step in bfloat16 (`SolverConfig.bf16_rollout`; the JAX package's
+    `step_fn_fwd`): x and u cast to bfloat16, every integrator stage and the
+    dynamics computed on them (a Python constant, dt among them, keeps a
+    bfloat16 tensor bfloat16), x handed back in x's own dtype."""
+
+    def bf16_step(x, u):
+        return step(x.to(torch.bfloat16), u.to(torch.bfloat16)).to(x.dtype)
+
+    return bf16_step
+
+
 def make_step_jacobian(plant: Plant, integrator: int, dt: float) -> Callable:
     """Return jac(x, u) -> AB (n_state, n_state + n_ctrl) for one sample, the
     discrete dynamics Jacobian [A | B] (`_integratorGradient`)."""

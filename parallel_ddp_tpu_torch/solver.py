@@ -21,6 +21,15 @@ at B = 1, the axis added and taken off at the entry point.  Two loops run it:
     iterations and the rho retry are WHILE nodes: the host reads nothing,
     and `host_syncs` is 0.
 Exit conditions match acceptRejectTraj* (nisInitHelpers.cuh:487-592).
+
+Reduced precision (`SolverConfig.bf16_rollout`, `bf16_cost`; the JAX
+package's solver.py:122-141, 177-183): the line search's forward simulation
+steps in bfloat16 (`ops/integrators.py::make_bf16_step`, or the plant's
+`fused_rollout_bf16` op, never its float32 `fused_rollout`), and each stage
+cost is evaluated on bfloat16 x and u and handed back in the solve's dtype,
+so every sum over stages and alphas accumulates there; J0 goes through the
+same stage.  The feedback law, the open-loop rollout, the derivative stage
+and the backward pass stay in the solve's dtype.
 """
 
 from __future__ import annotations
@@ -37,8 +46,8 @@ from parallel_ddp_tpu_torch.costs.base import CostModel
 from parallel_ddp_tpu_torch.device import as_tensor
 from parallel_ddp_tpu_torch.models.base import Plant
 from parallel_ddp_tpu_torch.ops.cuda_sim_chain import make_sim_chain
-from parallel_ddp_tpu_torch.ops.integrators import (make_step, make_step_jacobian,
-                                                    make_step_jacobian_fd)
+from parallel_ddp_tpu_torch.ops.integrators import (make_bf16_step, make_step,
+                                                    make_step_jacobian, make_step_jacobian_fd)
 from parallel_ddp_tpu_torch.parallel.backward import backward_pass, per_scenario_mask
 from parallel_ddp_tpu_torch.parallel.forward import forward_pass, line_search
 
@@ -101,6 +110,16 @@ def open_loop_rollout(cfg: SolverConfig, open_loop, x0_state, u):
     return x_new, d
 
 
+def bf16_stage(stage):
+    """A stage cost fn(x, u, k, goal, w) evaluated on bfloat16 x and u and
+    handed back in x's dtype (`SolverConfig.bf16_cost`)."""
+
+    def stage_bf16(x, u, k, goal, w):
+        return stage(x.to(torch.bfloat16), u.to(torch.bfloat16), k, goal, w).to(x.dtype)
+
+    return stage_bf16
+
+
 def refuse_tf32(device: torch.device) -> None:
     """Raise on the card when TF32 matmuls are on: TF32 keeps ~3 decimal
     digits, Huu turns indefinite and the Riccati recursion fails (the
@@ -157,11 +176,11 @@ class _Solver:
     goal or `iter_limit` needs no new capture."""
 
     def __init__(self, plant: Plant, cost: CostModel, cfg: SolverConfig):
-        unported = [f for f in ("bf16_rollout", "bf16_cost") if getattr(cfg, f)]
-        if unported:
-            raise NotImplementedError(f"not ported yet: {', '.join(unported)}")
         self.plant, self.cost, self.cfg = plant, cost, cfg
         self.step_fn = make_step(plant, cfg.integrator, cfg.dt)
+        # the line search's step and the stage cost (bfloat16 where asked)
+        self.step_fwd = make_bf16_step(self.step_fn) if cfg.bf16_rollout else self.step_fn
+        self.stage = bf16_stage(cost.stage) if cfg.bf16_cost else cost.stage
         self.chain = make_sim_chain(plant, cfg.integrator, cfg.dt)
         if cfg.use_finite_diff:
             self.step_jac = make_step_jacobian_fd(plant, cfg.integrator, cfg.dt, cfg.fd_eps)
@@ -171,11 +190,12 @@ class _Solver:
         else:
             self.step_jac = make_step_jacobian(plant, cfg.integrator, cfg.dt)
         # the whole forward simulation in one op when the plant ships one
+        # (under bf16_rollout its bfloat16 op: the float32 one is never asked)
+        fused = plant.fused_rollout_bf16 if cfg.bf16_rollout else plant.fused_rollout
         self.fused_sim = None
-        if plant.fused_rollout is not None and not cfg.slq:
-            self.fused_sim = plant.fused_rollout(
-                cfg.integrator, cfg.dt, cfg.num_time_steps, cfg.m_blocks_f,
-                cfg.num_alpha)
+        if fused is not None and not cfg.slq:
+            self.fused_sim = fused(cfg.integrator, cfg.dt, cfg.num_time_steps, cfg.m_blocks_f,
+                                   cfg.num_alpha)
         self._alphas = {}
         self.graphs = graphs.GraphCache("solve")
         self.host_syncs = 0
@@ -320,7 +340,7 @@ class _Solver:
             x = x0.clone()
             d = d0.clone() if d0 is not None else zeros(N, n)
         u = u0.clone()
-        stage = per_scenario(self.cost.stage, dims)
+        stage = per_scenario(self.stage, dims)
         J0 = stage(x, u, torch.arange(N, device=device), goal, weights_of(w, x)).sum(-1)
         J_trace = torch.full((B, cfg.max_iter + 1), torch.nan, dtype=dtype, device=device)
         J_trace[:, 0] = J0
@@ -355,7 +375,7 @@ class _Solver:
         cfg, cost = self.cfg, self.cost
         active = torch.logical_and(~c.done, c.it <= cap)
         w = weights_of(w, c.x)
-        cost_stage = per_scenario(cost.stage, c.goal_dims)
+        cost_stage = per_scenario(self.stage, c.goal_dims)
 
         def stage(xk, uk, k):
             return cost_stage(xk, uk, k, goal, w)
@@ -370,7 +390,7 @@ class _Solver:
 
         # FORWARD PASS ----------------------------------------------------------
         alphas = self.alphas(c.x.device, c.x.dtype)
-        ro = forward_pass(cfg, self.step_fn, stage, c.x, c.u, c.d, bp.K, bp.du,
+        ro = forward_pass(cfg, self.step_fwd, stage, c.x, c.u, c.d, bp.K, bp.du,
                           bp.ApBK, bp.Bdu, c.x, alphas, fused_sim=self.fused_sim)
         ls = line_search(cfg, ro.J, ro.max_defect, alphas, bp.dJexp, c.prevJ,
                          c.ignore_defect)

@@ -85,7 +85,7 @@ def phase_times(plant, cost, cfg, x, u, goal, weights=None, reps: int = 20, devi
     w = weights_tensor(weights, dev)
     n, N = plant.n_state, cfg.num_time_steps
     alphas = solver.alphas(dev, torch.float32)
-    stage = lambda xk, uk, k: cost.stage(xk, uk, k, goal, w)
+    stage = lambda xk, uk, k: solver.stage(xk, uk, k, goal, w)
 
     out: Dict[str, Dict[str, float]] = {}
     derivs = lambda: _derivatives(cfg, solver.step_jac, cost.quad, x, u, goal, w)
@@ -100,7 +100,7 @@ def phase_times(plant, cost, cfg, x, u, goal, weights=None, reps: int = 20, devi
     bp_out = bp()
     out["backward_pass"] = timing_stats(_time_fn(bp, dev, reps))
 
-    fp = lambda: forward_pass(cfg, solver.step_fn, stage, x, u, zeros_n, bp_out.K, bp_out.du,
+    fp = lambda: forward_pass(cfg, solver.step_fwd, stage, x, u, zeros_n, bp_out.K, bp_out.du,
                               bp_out.ApBK, bp_out.Bdu, x, alphas, fused_sim=solver.fused_sim)
     out["forward_pass"] = timing_stats(_time_fn(fp, dev, reps))
     return out

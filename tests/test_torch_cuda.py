@@ -148,6 +148,79 @@ def test_rollout_group_kernel_lanes(dev, A, M, nf, integrator):
     assert cuda_rollout.kuka_rollout_cuda.counter.launches == before + 2
 
 
+# the bfloat16 step: its kernel and plain version round every operation to
+# bfloat16 alike (tests/test_torch_group_core.py holds the dynamics bit for
+# bit on the host); they part only where the float32 feedback law's sums
+# round otherwise, by float32 roundings, unless a control lands on the other
+# side of a bfloat16 rounding, which the steps then carry.  At these few
+# lanes the limit is chip_smoke.py's for the WAFR shape: 1e-5 of
+# max(|x|, 1), at least 90 % of the outputs bit for bit, and rollout.cu's
+# float32 result outside the limit on the same inputs (the limit separates
+# the two precisions)
+BF16_LIMIT = 1e-5
+BF16_SAME_MIN = 0.9
+
+
+def _default_skip(M, nf, dev):
+    k = torch.arange(M * nf, device=dev).reshape(M, nf)
+    return (k == M * nf - 1).to(torch.uint8)
+
+
+@pytest.mark.parametrize("integrator", [1, 2, 3])
+@pytest.mark.parametrize("A,M,nf", [(16, 4, 16), (5, 3, 7), (40, 2, 16)])
+def test_rollout_bf16_kernel(dev, A, M, nf, integrator):
+    """The rollout kernel's bfloat16 entry against its plain version on the
+    same CUDA tensors (the soa step on bfloat16 tensors), with the default
+    mask and one that skips an interior step, within BF16_LIMIT, which the
+    float32 kernel misses; its own launch counter counts, the float32
+    rollout's only for the calls made here."""
+    rng = np.random.default_rng(200 * A + 10 * M + nf + integrator)
+    args = _rollout_inputs(rng, A, M, nf, dev)
+    fused = cuda_rollout.make_kuka_bf16_rollout(1, 0.0, integrator, 0.5 / 63, M * nf, M, A)
+    mask = _default_skip(M, nf, dev)
+    mask[0, nf // 2] = 1
+    kw = dict(ee_type=1, gravity=0.0, integrator=integrator, dt=0.5 / 63, m_blocks=M)
+    before = (cuda_rollout.kuka_rollout_bf16_cuda.counter.launches,
+              cuda_rollout.kuka_rollout_cuda.counter.launches)
+    rel = lambda got, ref: max(float((g - r).abs().max()) / max(float(r.abs().max()), 1.0)
+                               for g, r in zip(got, ref))
+    for skip in (_default_skip(M, nf, dev), mask):
+        got = fused(*args, skip_mask=skip)
+        ref = cuda_rollout.kuka_rollout_bf16_plain(*args, skip, **kw)
+        assert got[0].dtype == torch.float32 and got[0].shape == (A, M, nf, 14)
+        same = sum(int((g == r).sum()) for g, r in zip(got, ref)) / sum(g.numel() for g in got)
+        err = rel(got, ref)
+        assert err <= BF16_LIMIT and same >= BF16_SAME_MIN, (err, same)
+        sep = rel(cuda_rollout.kuka_rollout_cuda(*args, skip, **kw), ref)
+        assert sep > BF16_LIMIT, sep
+    # the float32 kernel ran only where called above, for the separation
+    assert cuda_rollout.kuka_rollout_bf16_cuda.counter.launches == before[0] + 2
+    assert cuda_rollout.kuka_rollout_cuda.counter.launches == before[1] + 2
+
+
+def test_rollout_bf16_kernel_scenarios(dev):
+    """S = 3 scenarios in one launch of the bfloat16 entry: each scenario's
+    outputs are its own launch's, bit for bit."""
+    rng = np.random.default_rng(11)
+    A, M, nf = 16, 4, 16
+    batch = [_rollout_inputs(rng, A, M, nf, dev) for _ in range(3)]
+    alphas = batch[0][5]
+    fused = cuda_rollout.make_kuka_bf16_rollout(1, 0.0, 1, 0.5 / 63, M * nf, M, A)
+    xs, us = fused(*[torch.stack([b[i] for b in batch]) for i in range(5)], alphas)
+    for s, b in enumerate(batch):
+        x1, u1 = fused(*b[:5], alphas)
+        assert torch.equal(xs[s], x1) and torch.equal(us[s], u1)
+
+
+def test_qdd_kernel_refuses_bf16(dev):
+    """No path runs a bfloat16 step through the float32 forward-dynamics
+    kernel: it refuses bfloat16 input."""
+    x = torch.zeros(4, 14, device=dev, dtype=torch.bfloat16)
+    u = torch.zeros(4, 7, device=dev, dtype=torch.bfloat16)
+    with pytest.raises(TypeError, match="float32"):
+        cuda_rbd.kuka_qdd_cuda(x, u, 1, 0.0)
+
+
 @pytest.mark.parametrize("integrator", [1, 2, 3])
 def test_rollout_without_feedback_is_the_chain_kernel(dev, integrator):
     """With K = 0 and du = 0 a rollout lane is an open-loop chain: the rollout

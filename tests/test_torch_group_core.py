@@ -188,3 +188,97 @@ def test_rollout_step_limit_follows_the_workspace(host_binary):
     assert cuda_rollout.MAX_BLOCK_STEPS == (232448 - 4 * (fields * 32 + kc_size)) // per_step
     limit = int(re.search(r"Nf > (\d+)", (CSRC / "rollout.cu").read_text()).group(1))
     assert limit == cuda_rollout.MAX_BLOCK_STEPS
+
+
+HOST_BF16_SOURCE = r'''// Host emulation of the thread-group forward dynamics on the bfloat16 scalar
+// (parallel_ddp_tpu_torch/csrc/bf16_scalar.cuh): one host thread per warp
+// role, as group_core_host.cpp.  Reads evaluations (q, qd, tau: 21 floats
+// each, bfloat16 values) and prints each one's qdd as bfloat16 bits.
+//
+// usage: group_core_bf16_host <consts.bin (KC_SIZE float32)> <inputs.bin>
+#define KG_HOST_EMULATION
+#include <atomic>
+#include <barrier>
+#include <cstdio>
+#include <thread>
+#include <vector>
+
+#include "cuda_runtime.h"   // the test's stand-in: empty __device__ and friends
+
+static std::barrier<>* g_block = nullptr;
+static std::atomic<int> g_bar[16];
+inline void kg_sync_block() { g_block->arrive_and_wait(); }
+inline void kg_bar_arrive(int id, int) { g_bar[id].fetch_add(1, std::memory_order_acq_rel); }
+inline void kg_bar_sync(int id, int threads) {
+  g_bar[id].fetch_add(1, std::memory_order_acq_rel);
+  while (g_bar[id].load(std::memory_order_acquire) < threads / 32) std::this_thread::yield();
+}
+
+#include "bf16_scalar.cuh"
+
+int main(int argc, char** argv) {
+  if (argc != 3) return 2;
+  float cc[KC_SIZE];
+  FILE* f = std::fopen(argv[1], "rb");
+  if (!f || std::fread(cc, sizeof(float), KC_SIZE, f) != KC_SIZE) return 2;
+  std::fclose(f);
+  std::vector<float> in;
+  f = std::fopen(argv[2], "rb");
+  if (!f) return 2;
+  float v;
+  while (std::fread(&v, sizeof(float), 1, f) == 1) in.push_back(v);
+  std::fclose(f);
+  std::barrier<> block(KG_WARPS);
+  g_block = &block;
+  const int n = static_cast<int>(in.size()) / (3 * KUKA_NJ);
+  for (int e = 0; e < n; ++e) {
+    std::vector<Bf16> ws(KG_FIELDS * KG_LANES);
+    KgCol<Bf16> col{ws.data() + e % KG_LANES};
+    for (int i = 0; i < 3 * KUKA_NJ; ++i) col[KG_X + i] = Bf16(in[3 * KUKA_NJ * e + i]);
+    for (auto& g : g_bar) g.store(0);
+    std::vector<std::thread> warps;
+    for (int w = 0; w < KG_WARPS; ++w)
+      warps.emplace_back([&, w] { kuka_qdd_group<Bf16>(cc, col, w); });
+    for (auto& t : warps) t.join();
+    std::printf("qdd");
+    for (int i = 0; i < KUKA_NJ; ++i) std::printf(" %u", static_cast<unsigned>(col[KG_QDD + i].b));
+    std::printf("\n");
+  }
+  return 0;
+}
+'''
+
+
+@pytest.mark.parametrize("gravity", [0.0, 9.81])
+def test_bf16_group_core_equals_torch_bf16_dynamics(host_binary, gravity):
+    """The group core on the bfloat16 scalar (what rollout.cu's bfloat16
+    entry runs) against the torch soa dynamics on bfloat16 tensors (its
+    plain version's step): every operation rounded as PyTorch rounds it, so
+    the two agree bit for bit but where the host's sinf/cosf and PyTorch's
+    sin/cos round a float to different bfloat16 neighbours (none in these
+    cases; a few in a thousand would be that)."""
+    work, _ = host_binary
+    cxx = shutil.which("g++") or shutil.which("c++")
+    (work / "group_core_bf16_host.cpp").write_text(HOST_BF16_SOURCE)
+    binary = work / "group_core_bf16_host"
+    if not binary.exists():
+        proc = subprocess.run(
+            [cxx, "-std=c++20", "-O1", "-ffp-contract=off", "-pthread", "-w", f"-I{work}",
+             f"-I{CSRC}", str(work / "group_core_bf16_host.cpp"), "-o", str(binary)],
+            capture_output=True, text=True, timeout=600)
+        assert proc.returncode == 0, proc.stderr[-4000:]
+    rng = np.random.default_rng(7)
+    x = torch.as_tensor(rng.normal(0, 0.5, (96, 14)), dtype=torch.float32).bfloat16()
+    u = torch.as_tensor(rng.normal(0, 2.0, (96, 7)), dtype=torch.float32).bfloat16()
+    consts = work / f"consts_bf16_{gravity}.bin"
+    np.asarray(soa._consts(1, gravity).flat(), np.float32).tofile(consts)
+    inputs = work / f"inputs_bf16_{gravity}.bin"
+    torch.cat([x, u], dim=-1).float().numpy().tofile(inputs)
+    proc = subprocess.run([str(binary), str(consts), str(inputs)], capture_output=True,
+                          text=True, timeout=600)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    got = np.array([ln.split()[1:] for ln in proc.stdout.splitlines() if ln.startswith("qdd")],
+                   dtype=np.uint16)
+    ref = soa.KukaSoA(ee_type=1, gravity=gravity).forward_dynamics(x, u)
+    assert ref.dtype == torch.bfloat16 and got.shape == (96, 7)
+    np.testing.assert_array_equal(got, ref.view(torch.int16).numpy().view(np.uint16))

@@ -304,6 +304,14 @@ def test_solver_takes_finite_differences_and_refuses_the_rest():
     solver = make_ilqr_solver(prob.plant, prob.cost,
                               dataclasses.replace(prob.cfg, use_finite_diff=True))
     assert getattr(solver.step_jac, "_is_batched", False)
-    for field in ("bf16_rollout", "bf16_cost"):
-        with pytest.raises(NotImplementedError, match=field):
-            make_ilqr_solver(prob.plant, prob.cost, dataclasses.replace(prob.cfg, **{field: True}))
+    # the bfloat16 options are taken (they raised before the port had them,
+    # whence the test's name): the line search's step and the stage cost are
+    # the wrapped ones
+    x, u = torch.tensor([[0.3, -0.2]]), torch.tensor([[0.7]])
+    roll = make_ilqr_solver(prob.plant, prob.cost, dataclasses.replace(prob.cfg, bf16_rollout=True))
+    assert roll.step_fwd is not roll.step_fn and roll.stage is prob.cost.stage
+    got = roll.step_fwd(x, u)
+    assert got.dtype == torch.float32 and torch.equal(
+        got, roll.step_fn(x.bfloat16(), u.bfloat16()).float())
+    cost = make_ilqr_solver(prob.plant, prob.cost, dataclasses.replace(prob.cfg, bf16_cost=True))
+    assert cost.step_fwd is cost.step_fn and cost.stage is not prob.cost.stage

@@ -15,7 +15,6 @@ import functools
 import jax
 import jax.numpy as jnp
 import numpy as np
-import pytest
 import torch
 
 from parallel_ddp_tpu.ops.integrators import make_step as ref_make_step
@@ -154,20 +153,37 @@ def test_iteration_budget_and_host_syncs():
 
 
 def test_assoc_scan_option_is_taken_and_bf16_still_refused():
-    """bp_assoc_scan (the exact log-depth backward pass) builds a solver;
-    the two bf16 options are not ported and still raise, with it too."""
+    """bp_assoc_scan (the exact log-depth backward pass) builds a solver,
+    and so do the two bf16 options with it (they raised before the port had
+    them): the forward simulation is the rollout op's bfloat16 entry, the
+    stage cost the wrapped one, the backward pass still the exact one.  (The
+    name is the one the test had while the bf16 options raised.)"""
     prob = kuka_ee(num_time_steps=N, m_blocks=M, num_alpha=A)
     cfg = dataclasses.replace(prob.cfg, pallas_riccati=False, state_reg=False,
                               bp_assoc_scan=True)
     assert make_ilqr_solver(prob.plant, prob.cost, cfg).cfg.bp_assoc_scan
-    for field in ("bf16_rollout", "bf16_cost"):
-        with pytest.raises(NotImplementedError, match=field):
-            make_ilqr_solver(prob.plant, prob.cost, dataclasses.replace(cfg, **{field: True}))
+    solver = make_ilqr_solver(prob.plant, prob.cost,
+                              dataclasses.replace(cfg, bf16_rollout=True, bf16_cost=True))
+    assert solver.cfg.bp_assoc_scan and solver.cfg.bf16_rollout and solver.cfg.bf16_cost
+    assert solver.fused_sim is not None and solver.stage is not prob.cost.stage
+    out = solver(torch.zeros(N, 14), torch.zeros(N, 7), interop.goal(ref_ee_goal(list(GOAL))),
+                 initial_rollout=True, iter_limit=2)
+    assert out.J_trace.dtype == torch.float32 and bool(torch.isfinite(out.x).all())
+    assert float(out.J) <= float(out.J_trace[0])
 
 
 def test_unported_options_raise():
+    """A reference configuration with bf16_rollout maps through
+    `interop.solver_config` to a port solver that takes it (it raised before
+    the port had it) and whose cold solve lowers J (the trace against the
+    float32 solve: tests/test_torch_bf16.py).  (The name is the one the test
+    had while the option raised.)"""
     cfg_ref = _reference()[0]
     prob = kuka_ee(num_time_steps=N, m_blocks=M, num_alpha=A)
-    with pytest.raises(NotImplementedError):
-        make_ilqr_solver(prob.plant, prob.cost,
-                         dataclasses.replace(interop.solver_config(cfg_ref), bf16_rollout=True))
+    cfg = interop.solver_config(dataclasses.replace(cfg_ref, bf16_rollout=True))
+    assert cfg.bf16_rollout and not cfg.bf16_cost
+    solver = make_ilqr_solver(prob.plant, prob.cost, cfg)
+    assert solver.step_fwd is not solver.step_fn and solver.fused_sim is not None
+    out = solver(torch.zeros(N, 14), torch.zeros(N, 7), interop.goal(ref_ee_goal(list(GOAL))),
+                 initial_rollout=True)
+    assert bool(torch.isfinite(out.x).all()) and float(out.J) < float(out.J_trace[0])
