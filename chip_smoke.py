@@ -419,6 +419,22 @@ URDF_MAX_DEFECT = 0.1          # tests/test_urdf.py's bar for a URDF arm's solve
 ASSOC_HORIZONS = (64, 256, 1024)
 ASSOC_TIMED = 20
 ASSOC_BLOCKS = 4               # the block sweep's and riccati.cu's lanes
+# horizon sharding (sp phase): the WAFR solve split into S in-process 'sp'
+# chunks, held to the sp solve at S = 1 and to the single solve with
+# tests/test_sp.py's bands for this very shape (its Kuka production-shape
+# test, :147-174: J rtol 1e-4, x rtol and atol 1e-3), or within
+# J_TRACE_FACTOR x the one-ulp envelope where that is wider (hold_sp); a
+# (dp = 1, sp = 4) batch of SP_BATCH held per scenario by hold_scenario.
+# The card's batched products round otherwise at another chunk count, and
+# 6 iterations of the Kuka amplify it: S = 2 against S = 1 read J 5.3e-5
+# apart on the cold solve and 2.3e-4 on the first warm one, the same alphas
+# (my chip runs 1-2, PR 18)
+SP_SIZES = (2, 4)
+SP_J_RTOL = 1e-4
+SP_X_TOL = 1e-3
+SP_BATCH = 256
+SP_BATCH_SAMPLES = (0, 255)
+SP_BATCH_TIMED = 5
 # the kernels against the independent spatial-algebra core (KukaRBD) on the
 # card: |kernel - rbd| <= rtol |rbd| + atol, the JAX package's own bounds of
 # its scalar-channel core against that core (tests/test_soa.py:35 for qdd,
@@ -440,6 +456,9 @@ PATH_KERNELS = {
     "plants_pendulum_loop": ("riccati",),
     "urdf_iiwa14": ("riccati",),
     "wafr_assoc": ("rbd_jac", "rollout", "sim_chain"),
+    "wafr_sp2": ("rbd_jac", "rollout", "riccati", "sim_chain"),
+    "wafr_sp4": ("rbd_jac", "rollout", "riccati", "sim_chain"),
+    "wafr_sp_batched": ("rbd_jac", "rollout", "riccati", "sim_chain"),
     "wafr_bf16": ("rbd_jac", "rollout_bf16", "riccati", "sim_chain"),
     "wafr_bf16_cost": ("rbd_jac", "rollout", "riccati", "sim_chain"),
     "wafr_batched_bf16": ("rbd_jac", "rollout_bf16", "riccati", "sim_chain"),
@@ -1953,6 +1972,271 @@ def assoc_phase(torch, np, dev, card, kuka_warm_ms=None):
     print(f"assoc: phase took {time.perf_counter() - t_phase:.1f} s", flush=True)
     summary = dict(warm_ms=warm_ms, body_nodes=stats.body_nodes, nodes=stats.nodes, per_n=per_n)
     return {"wafr_assoc": counts}, summary, {"assoc solver": solver.graphs}
+
+
+def hold_sp(np, got, ref, moved):
+    """An sp solve against a reference solve on the card (the sp solve at
+    S = 1, or the single solve, whose forward sweep is the serial loop, not
+    the sp path's associative scan), given `moved`, the single solve from
+    the same start moved by one ulp.  The alphas equal up to the reference
+    trace's first near tie (PLANT_TIE); J at each iteration, and x at the
+    end (|x - x_ref| / (1 + |x_ref|)), within tests/test_sp.py's bands for
+    this shape (SP_J_RTOL, SP_X_TOL) or, where the one-ulp move parts the
+    single solve by more, within J_TRACE_FACTOR x that (J: its running
+    largest gap, as hold_scenario).  Returns the printed reading, and fails
+    on a miss."""
+    it_g, it_r = int(got.iters), int(ref.iters)
+    k = min(it_g, it_r)
+    part = first_difference(got.alpha_trace.cpu(), ref.alpha_trace.cpu(), k)
+    if part is None and it_g != it_r:
+        part = k + 1
+    allowed = first_tie(np, ref, PLANT_TIE)
+    gap = trace_gap(got.J_trace, ref.J_trace, k)
+    env = trace_gap(moved.J_trace, ref.J_trace, min(k, int(moved.iters)))
+    env = np.maximum(J_TRACE_FLOOR, np.maximum.accumulate(
+        np.pad(env, (0, len(gap) - len(env)), mode="edge")))
+    j_bar = np.maximum(SP_J_RTOL, J_TRACE_FACTOR * env)
+    upto = k + 1 if part is None else part
+    rel_x = lambda a: float(((a.x - ref.x).abs() / (1.0 + ref.x.abs())).max())
+    x_err, x_env = rel_x(got), rel_x(moved)
+    x_bar = max(SP_X_TOL, J_TRACE_FACTOR * x_env)
+    read = (f"iterations {it_g} / {it_r}, alphas {got.alpha_trace[1:it_g + 1].tolist()} / "
+            f"{ref.alpha_trace[1:it_r + 1].tolist()}; first difference at {part} (first near tie "
+            f"of the reference at {allowed}); J gap by iteration {at_iters(gap)}, the one-ulp "
+            f"envelope {at_iters(env)}, the gap at most {float(np.max(gap[:upto] / j_bar[:upto])):.3f}"
+            f" x its bar (max({SP_J_RTOL:g}, {J_TRACE_FACTOR:g} x envelope)); max |x - x_ref| / "
+            f"(1 + |x_ref|) {x_err:.2e}, the envelope's {x_env:.2e} (bar {x_bar:.2e}"
+            f"{', not held after a parting' if part is not None else ''})")
+    if (part is not None and part < allowed) or np.any(gap[:upto] > j_bar[:upto]) or (
+            part is None and x_err > x_bar):
+        fail(f"sp: the sp solve is out of its bands: {read}")
+    return read
+
+
+def sp_kernel_checks(torch, np, dev, solvers):
+    """The Jacobian, rollout and Riccati kernels at the shapes the sp path
+    gives them, through the sp solver's own wrappers, against their plain
+    versions on CPU tensors, timed beside their plain versions on the card
+    and their bounds: the Jacobian's Euler AB at all S * Nl = N samples (the
+    chunks' knots, the global last among them); for each S, the rollout at
+    (alphas, Nl steps over Mf_l blocks) and the Riccati sweep at Mb_l lanes
+    with global step indices, each in the first chunk and in the last (the
+    horizon's last step skipped, the terminal row).  Returns {kernel: {key
+    _wafr_sp<S>: value}} for the kernels line, and each kernel's largest
+    error and verdict."""
+    from parallel_ddp_tpu_torch.ops import cuda_rbd, cuda_rollout
+    from parallel_ddp_tpu_torch.parallel.backward import run_block
+
+    rng = np.random.default_rng(1)
+    f32 = lambda *shape, s=1.0: torch.as_tensor(rng.normal(0, s, shape).astype(np.float32),
+                                                device=dev)
+    cpu = lambda args: [a.cpu() if isinstance(a, torch.Tensor) else a for a in args]
+    extra, worst = {"rbd_jac": {}, "rollout": {}, "riccati": {}}, {}
+
+    def check(name, label, key, op, plain, args):
+        got = op(*args)
+        got = list(got) if isinstance(got, (tuple, list)) else [got]
+        ref = op(*cpu(args))
+        ref = list(ref) if isinstance(ref, (tuple, list)) else [ref]
+        n = 7 if name == "riccati" else len(got)          # Riccati: not its fail flag
+        err, ok = compare(name, got[:n], [r.to(dev) for r in ref[:n]])
+        if name == "riccati" and (bool(got[7]) or bool(ref[7])):
+            fail(f"sp kernels: riccati {label}: a Cholesky failure on SPD inputs")
+        ms, plain_ms = cuda_ms(lambda: op(*args), 50), cuda_ms(plain, 3)
+        bound = roofline([a for a in args if isinstance(a, torch.Tensor)], got, count_ops(plain))
+        print(f"sp kernels: {name} {label}: max_abs_err {err:.3e} "
+              f"({'ok' if ok else 'OUT OF TOLERANCE'}); {ms:.4f} ms a launch vs plain "
+              f"{plain_ms:.3f} ms on the card; bound {bound['bound_ms']:.3e} ms by "
+              f"{bound['bound_by']}", flush=True)
+        extra[name].update({f"ms_{key}": ms, f"plain_ms_{key}": plain_ms,
+                            f"bound_ms_{key}": bound["bound_ms"],
+                            f"bound_by_{key}": bound["bound_by"], f"max_abs_err_{key}": err})
+        e0, o0 = worst.get(name, (0.0, True))
+        worst[name] = (max(e0, err), o0 and ok)
+
+    any_solver = solvers[SP_SIZES[0]]
+    cfg = any_solver.cfg
+    N, A, n, m = cfg.num_time_steps, cfg.num_alpha, 14, 7
+    xs, us = f32(N, n, s=0.5), f32(N, m, s=2.0)
+    check("rbd_jac", f"Euler AB at the chunks' {N} samples", "wafr_sp", any_solver.step_jac,
+          lambda: cuda_rbd.kuka_euler_ab_plain(xs, us, cfg.dt, 1, 0.0), [xs, us])
+    alphas = torch.as_tensor(cfg.alphas(), dtype=torch.float32, device=dev)
+    for S in SP_SIZES:
+        sv = solvers[S]
+        k = sv._chunk_consts(dev)
+        Nl, Mf_l, Mb_l, Nb = sv.Nl, sv.Mf_l, sv.Mb_l, cfg.n_blocks_b
+        kw = dict(ee_type=1, gravity=0.0, integrator=cfg.integrator, dt=cfg.dt, m_blocks=Mf_l)
+        step = sv.step
+        for c in sorted({0, S - 1}):
+            where = "last chunk" if c == S - 1 else "first chunk"
+            ro = [f32(A, Nl, n, s=0.3), f32(Nl, m), f32(Nl, m, n, s=0.05), f32(Nl, m, s=0.5),
+                  f32(Nl, n, s=0.3), alphas]
+            skip = k.skip[c]
+            check("rollout", f"S={S} {where}: {A} alphas x {Mf_l} blocks x {cfg.n_blocks_f} "
+                  f"steps, {int(skip.sum())} skipped", f"wafr_sp{S}_chunk{c}",
+                  lambda *a, skip=skip: sv.fused_sim(*a, skip_mask=skip),
+                  lambda ro=ro, skip=skip: cuda_rollout.kuka_rollout_plain(*ro, skip, **kw), ro)
+            C = rng.normal(0, 0.3, (Mb_l, Nb, n + m, n + m))
+            H = torch.as_tensor((C @ C.transpose(0, 1, 3, 2) + np.eye(n + m)).astype(np.float32),
+                                device=dev)
+            Cp = rng.normal(0, 0.3, (Mb_l, n, n))
+            sP = torch.as_tensor((Cp @ Cp.transpose(0, 2, 1) + np.eye(n)).astype(np.float32),
+                                 device=dev)
+            AB = f32(Mb_l, Nb, n, n + m, s=0.3)
+            AB = torch.where((k.k_blk_b[c] == N - 1)[..., None, None], torch.zeros_like(AB), AB)
+            ric = [torch.full((), 1.0, device=dev), sP, f32(Mb_l, n, s=0.5), AB, H,
+                   f32(Mb_l, Nb, n + m, s=0.5), f32(Mb_l, Nb, n, s=0.1), k.k_blk_b[c]]
+            check("riccati", f"S={S} {where}: {Mb_l} lanes x {Nb} steps from k = "
+                  f"{int(k.k_blk_b[c][0, 0])}", f"wafr_sp{S}_chunk{c}", sv.riccati_call,
+                  lambda ric=ric: run_block(step, ric[0].expand(Mb_l), *ric[1:]), ric)
+    return extra, worst
+
+
+def sp_phase(torch, np, dev, card, kuka_warm_ms=None, kernels=None):
+    """Horizon sharding (parallel/sp.py) on one card: the WAFR solve split
+    into S in-process 'sp' chunks for each S of SP_SIZES, cold + N_WARM warm
+    re-solves (each one replay, launch counters zeroed just before: the
+    Jacobian, rollout, Riccati and chain kernels must launch; 0 host reads),
+    each held to the sp solve at S = 1 and to the single solve on the card
+    (`hold_sp`); the warm re-solve timed beside the single solve's; a
+    (dp = 1, sp = 4) batched solve at
+    B = SP_BATCH, its sampled scenarios held to the sp solve of each alone
+    (`hold_scenario`), timed."""
+    from parallel_ddp_tpu_torch.parallel.sharding import Mesh, make_mesh
+    from parallel_ddp_tpu_torch.parallel.sp import make_batched_sp_solver, make_sp_solver
+    from parallel_ddp_tpu_torch.presets import ee_goal, figure8_goal, kuka_ee
+    from parallel_ddp_tpu_torch.solver import make_ilqr_solver
+
+    t_phase = time.perf_counter()
+    prob = kuka_ee()
+    cfg = dataclasses.replace(prob.cfg, max_iter=N_ITERS, tol_cost=0.0, pallas_riccati=True)
+    N = cfg.num_time_steps
+    # the solve phase's cold start and goals; a warm re-solve starts from
+    # the last solve's trajectory with zero P, p and d (the reference's sp
+    # solver takes no warm P0 / p0 / d0)
+    x_start = (np.random.default_rng(0).standard_normal(14) * 0.3).astype(np.float32)
+    x0 = torch.as_tensor(np.broadcast_to(x_start, (N, 14)).copy(), device=dev)
+    u0 = torch.zeros(N, 7, device=dev)
+    goals = [ee_goal(g, device=dev) for g in [[0.0, -0.55, 0.35]] + [
+        list(figure8_goal(MPC_DT * i)[0]) for i in range(1, N_WARM + 1)]]
+    kinds = ["cold"] + [f"warm{i}" for i in range(1, N_WARM + 1)]
+
+    def track(solver, base=None):
+        """The cold solve, and each warm re-solve from the last solve of
+        `base` (default: of this track), toward the next goal."""
+        outs = [solver(x0, u0, goals[0], initial_rollout=True)]
+        for i, goal in enumerate(goals[1:]):
+            prev = (base or outs)[i]
+            outs.append(solver(prev.x, prev.u, goal, initial_rollout=False))
+        return outs
+
+    def warm_ms(solver, cold):
+        one = lambda: solver(cold.x, cold.u, goals[1], initial_rollout=False)
+        one()
+        torch.cuda.synchronize()
+        _, syncs = count_syncs(torch, one)
+        if solver.host_syncs or syncs:
+            fail(f"sp: a replayed warm re-solve read the host ({solver.host_syncs} reads, torch "
+                 f"sync-debug count {syncs})")
+        return float(np.median(event_times(one, N_TIMED)))
+
+    single = make_ilqr_solver(prob.plant, prob.cost, cfg)
+    track(single)                                              # the captures
+    ref = track(single)
+    single_ms = warm_ms(single, ref[0])
+    # the one-ulp envelope of each solve: the single solve from its start
+    # trajectory moved by one ulp
+    up = lambda t: torch.nextafter(t, torch.full_like(t, float("inf")))
+    starts = [(x0, True)] + [(o.x, False) for o in ref[:-1]]
+    moved = [single(up(x), u, g, initial_rollout=r)
+             for (x, r), u, g in zip(starts, [u0] + [o.u for o in ref[:-1]], goals)]
+    solvers = {S: make_sp_solver(prob.plant, prob.cost, cfg, make_mesh(S, ("sp",)))
+               for S in (1,) + SP_SIZES}
+    # every sp track re-solves from the single track's solves, so that each
+    # solve starts where its reference starts
+    extra, worst = sp_kernel_checks(torch, np, dev, solvers)
+    if not all(ok for _, ok in worst.values()):
+        fail(f"sp kernels: a kernel disagrees with its plain version at the sp path's shapes: "
+             f"{worst}")
+    for r in kernels or []:
+        if r["name"] in extra:
+            r.update(extra[r["name"]])
+            r["max_abs_err"] = max(r["max_abs_err"], worst[r["name"]][0])
+    track(solvers[1], ref)
+    ref1 = track(solvers[1], ref)
+    launches, summary, caches = {}, {}, {"sp single solver": single.graphs}
+    for S in SP_SIZES:
+        path = f"wafr_sp{S}"
+        solver = solvers[S]
+        t0 = time.perf_counter()
+        track(solver, ref)                                     # the captures
+        torch.cuda.synchronize()
+        capture_s = time.perf_counter() - t0
+        reset_counts()
+        outs, syncs = count_syncs(torch, lambda: track(solver, ref))
+        torch.cuda.synchronize()
+        launches[path] = counts = read_counts()
+        print(f"sp: {path}: kernel launches during the cold + {N_WARM} warm solves over {S} "
+              f"chunks (graph replays, counted on the device): {json.dumps(counts)}; both graphs "
+              f"captured in {capture_s:.1f} s; host reads {solver.host_syncs} (torch sync-debug "
+              f"count {syncs})", flush=True)
+        require_launched(path, counts)
+        if solver.host_syncs or syncs:
+            fail(f"{path}: the replayed solves read the host")
+        for kind, got, want, one, env in zip(kinds, outs, ref1, ref, moved):
+            print(f"sp: {path} {kind} against the sp solve at S = 1: "
+                  f"{hold_sp(np, got, want, env)}; against the single solve: "
+                  f"{hold_sp(np, got, one, env)}", flush=True)
+        ms = warm_ms(solver, outs[0])
+        cold_stats, stats = solver.graphs.stats()
+        summary[S] = dict(warm_ms=ms, body_nodes=stats.body_nodes, nodes=stats.nodes)
+        caches[f"sp{S} solver"] = solver.graphs
+        print(f"sp: {path} warm {N_ITERS}-iteration re-solve (one graph replay): median "
+              f"{ms:.3f} ms over {N_TIMED}, beside the single solve's {single_ms:.3f} ms in this "
+              f"phase (timing phase, warm from P0 / p0 / d0: "
+              f"{'not run' if kuka_warm_ms is None else f'{kuka_warm_ms:.3f} ms'}); graph "
+              f"{stats.nodes} nodes, WHILE bodies {list(stats.body_nodes)} (the first is the "
+              f"iteration's), captured in {stats.seconds:.2f} s; cold graph {cold_stats.nodes} "
+              f"nodes on {card}", flush=True)
+
+    # the (dp = 1, sp = 4) batch: scenario b toward the figure-8 at 10 s b / B
+    B = SP_BATCH
+    tile = lambda t: t[None].expand((B,) + t.shape).contiguous()
+    x0s, u0s, bgoals = tile(ref[0].x), tile(ref[0].u), batch_goals(torch, np, B, None, dev)
+    solve = make_batched_sp_solver(prob.plant, prob.cost, cfg, Mesh((1, 4), ("dp", "sp")))
+    call = lambda: solve(x0s, u0s, bgoals)
+    t0 = time.perf_counter()
+    call()                                                     # the capture
+    torch.cuda.synchronize()
+    capture_s = time.perf_counter() - t0
+    reset_counts()
+    out, syncs = count_syncs(torch, call)
+    torch.cuda.synchronize()
+    launches["wafr_sp_batched"] = counts = read_counts()
+    require_launched("wafr_sp_batched", counts)
+    if solve.solver.host_syncs or syncs:
+        fail(f"wafr_sp_batched: the replayed solve read the host ({solve.solver.host_syncs} "
+             f"reads, torch sync-debug count {syncs})")
+    J, J0 = out.J.cpu().numpy(), out.J_trace[:, 0].cpu().numpy()
+    if not (np.all(np.isfinite(J)) and np.all(J <= J0)):
+        fail("wafr_sp_batched: non-finite J or J above J0")
+    gaps, needs = zip(*(hold_scenario(torch, np, "sp batched", solve, solvers[4], out, x0s, u0s,
+                                      bgoals, b) for b in SP_BATCH_SAMPLES))
+    times = event_times(call, SP_BATCH_TIMED)
+    g = solve.solver.graphs.stats()[0]
+    batched_ms = float(np.median(times))
+    caches["sp batched solver"] = solve.solver.graphs
+    print(f"sp: wafr_sp_batched: B={B} over a (dp = 1, sp = 4) mesh, {N_ITERS} iterations from "
+          f"the single cold solve's trajectory: launches {json.dumps(counts)}; scenarios "
+          f"{list(SP_BATCH_SAMPLES)} equal the sp solve of each alone (largest relative J gap "
+          f"{max(gaps):.2e}, largest share of the one-ulp envelope {max(needs):.3f}); {batched_ms:.3f} "
+          f"ms a batched solve (median of {SP_BATCH_TIMED}), {B / batched_ms * 1e3:.0f} solves/s; "
+          f"graph {g.nodes} nodes (bodies {list(g.body_nodes)}) captured in {capture_s:.1f} s "
+          f"with its warm-up on {card}", flush=True)
+    summary["batched_ms"] = batched_ms
+    summary["single_ms"] = single_ms
+    print(f"sp: phase took {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return launches, summary, caches
 
 
 def bf16_phase(torch, np, dev, card, kuka_warm_ms=None):
@@ -3491,6 +3775,10 @@ def main():
         assoc_phase(torch, np, dev, card)
         print("stopped after the assoc phase (--assoc-only): no result line", flush=True)
         return
+    if sys.argv[1:] == ["--sp-only"]:           # the horizon-sharding phase alone
+        sp_phase(torch, np, dev, card)
+        print("stopped after the sp phase (--sp-only): no result line", flush=True)
+        return
     if sys.argv[1:] == ["--bf16-only"]:         # the bfloat16 forward path's phase alone
         bf16_phase(torch, np, dev, card)
         print("stopped after the bf16 phase (--bf16-only): no result line", flush=True)
@@ -3506,6 +3794,7 @@ def main():
     assoc_launches, assoc_summary, assoc_caches = assoc_phase(torch, np, dev, card, median_ms)
     bf16_launches, bf16_kernel, bf16_summary, bf16_caches = bf16_phase(torch, np, dev, card,
                                                                        median_ms)
+    sp_launches, sp_summary, sp_caches = sp_phase(torch, np, dev, card, median_ms, kernels)
     al_launches, al_summary, al_caches = constraints_phase(torch, np, dev, card)
     fig8_launches, control_step, runner, per_step, fig8_caches, fleet = fig8_phase(
         torch, np, dev, card)
@@ -3514,7 +3803,8 @@ def main():
     pp_launches, pp_summary, pp_caches = pickplace_phase(torch, np, dev, card)
     rt_launches, rt_summary, rt_caches = runtime_phase(torch, np, dev, card)
     kernels.append(bf16_kernel)
-    caches = {"WAFR solver": solver.graphs, **assoc_caches, **bf16_caches, **al_caches, **fig8_caches, **batched_caches,
+    caches = {"WAFR solver": solver.graphs, **assoc_caches, **bf16_caches, **sp_caches,
+              **al_caches, **fig8_caches, **batched_caches,
               **pp_caches, **rt_caches}
     chain = next(r for r in kernels if r["name"] == "sim_chain")
     chain["max_abs_err"] = max(chain["max_abs_err"], runner.pop("max_abs_err"))
@@ -3544,7 +3834,7 @@ def main():
     # launches: the kernel's count on the path LAUNCHES_FROM names (the fig-8
     # closed loop where that runs it); launches_<path>: every path's own count
     by_path = {"wafr_solve": launches, **plant_launches, **urdf_launches, **assoc_launches,
-               **bf16_launches, **al_launches,
+               **bf16_launches, **sp_launches, **al_launches,
                **fig8_launches,
                "wafr_batched": batched_launches, **pp_launches, **rt_launches}
     line = {"kernels": [
@@ -3582,6 +3872,11 @@ def main():
           f"{bf16_summary['wafr_bf16_cost']['warm_ms']:.3f} ms; batched solves/s " + ", ".join(
               f"{k} {v:.0f}" for k, v in bf16_summary["batched"].items()) + f" on {card}",
           flush=True)
+    print("sp: warm " + f"{N_ITERS}-iteration re-solve " + ", ".join(
+        f"S={S} {sp_summary[S]['warm_ms']:.3f} ms (body {sp_summary[S]['body_nodes'][0]} nodes)"
+        for S in SP_SIZES) + f", the single solve {sp_summary['single_ms']:.3f} ms; B={SP_BATCH} "
+        f"(dp = 1, sp = 4) {sp_summary['batched_ms']:.3f} ms a batched solve on {card}",
+        flush=True)
     print(f"constraints: inner-solve replay {al_summary['inner_ms']['cold']:.3f} ms cold, "
           f"{al_summary['inner_ms']['warm']:.3f} ms warm; constrained batched B={AL_BATCH} "
           f"{al_summary['batched_ms']:.3f} ms; AL MPC period {al_summary['period_ms']:.3f} ms "

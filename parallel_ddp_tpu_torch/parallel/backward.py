@@ -355,14 +355,20 @@ def backward_pass(
     else:
         attempt = _block_attempt(cfg, AB_pad, H, g, Pp, pp, d, x, xp2)
 
-    # rho-retry loop (backwardPassGPU, bpHelpers.cuh:489-515; the reference
-    # package's retry_cond / retry_body) with a safety cap.  The first
-    # attempt's outputs, rho and drho are the loop's state: each retry
-    # commits under its scenario's fail & (tries < max), so a retry that
-    # was not needed changes nothing.
+    return rho_retry(cfg, attempt, rho0, drho0)
+
+
+def rho_retry(cfg: SolverConfig, attempt, rho0: torch.Tensor,
+              drho0: torch.Tensor) -> BackwardPassResult:
+    """The rho-retry loop around attempt(rho) -> (P, p, K, du, ApBK, Bdu,
+    dJexp, fail) (backwardPassGPU, bpHelpers.cuh:489-515; the reference
+    package's retry_cond / retry_body) with a safety cap, one scenario per
+    entry of fail.  The first attempt's outputs, rho and drho are the loop's
+    state: each retry commits under its scenario's fail & (tries < max), so
+    a retry that was not needed changes nothing."""
     out = list(attempt(rho0))
     rho, drho = rho0.clone(), drho0.clone()
-    tries = torch.zeros(lead, dtype=torch.int32, device=x.device)
+    tries = torch.zeros(out[7].shape, dtype=torch.int32, device=out[7].device)
 
     def retrying():
         return torch.logical_and(out[7], tries < cfg.max_bp_retries)

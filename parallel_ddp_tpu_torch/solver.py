@@ -69,25 +69,33 @@ def per_scenario(fn, dims):
     return torch.func.vmap(fn, in_dims=(0, 0, None, dims, None))
 
 
-def _derivatives(cfg, step_jac, cost_quad, x, u, goal, w):
+def _derivatives(cfg, step_jac, cost_quad, x, u, goal, w, ks=None):
     """Next-iteration setup: AB/H/g at the accepted trajectory over the whole
     time axis (integratorGradientKern + costGradientHessianKern,
     nisInitHelpers.cuh:245-279), for x (..., N, n): the leading scenario
-    dims are flattened into the dynamics' sample axis.
+    dims are flattened into the dynamics' sample axis.  AB has N-1 rows.
+
+    With `ks`, x (..., Nl, n) is a chunk of the horizon whose knots have the
+    global step indices ks (broadcast against x's leading dims; the 'sp'
+    path, `parallel/sp.py`): AB then has a row at every knot, zero at the
+    global k = N-1, the row the single solve pads.
 
     `step_jac` is either a per-sample jac (vmapped here) or an already-batched
     (S, n)-in (S, n, n+m)-out function (Plant.batched_step_jac — the
     RBD-Jacobian op on the main path — or the finite-difference AB),
     marked with `_is_batched`."""
     n, m = x.shape[-1], u.shape[-1]
-    xs = x[..., :-1, :].reshape(-1, n)
-    us = u[..., :-1, :].reshape(-1, m)
+    xs, us = (x, u) if ks is not None else (x[..., :-1, :], u[..., :-1, :])
     if getattr(step_jac, "_is_batched", False):
-        AB = step_jac(xs, us)
+        AB = step_jac(xs.reshape(-1, n), us.reshape(-1, m))
     else:
-        AB = torch.func.vmap(step_jac)(xs, us)
-    AB = AB.reshape(x.shape[:-2] + (cfg.num_time_steps - 1,) + AB.shape[-2:])
-    ks = torch.arange(cfg.num_time_steps, device=x.device)
+        AB = torch.func.vmap(step_jac)(xs.reshape(-1, n), us.reshape(-1, m))
+    AB = AB.reshape(xs.shape[:-1] + AB.shape[-2:])
+    if ks is None:
+        ks = torch.arange(cfg.num_time_steps, device=x.device)
+    else:
+        AB = torch.where((ks == cfg.num_time_steps - 1)[..., None, None], torch.zeros_like(AB),
+                         AB)
     H, g = cost_quad(x, u, ks, goal, w)
     return AB, H, g
 
@@ -259,7 +267,7 @@ class _Solver:
         it_cap = cfg.max_iter if iter_limit is None else min(max(int(iter_limit), 1), cfg.max_iter)
         flags = (bool(initial_rollout), bool(ignore_first_defect))
         args = (x0, u0, goal, P0, p0, d0, it_cap, w)
-        if not graphs.replayed(device):
+        if not self._replayed(device):
             out, self.host_syncs = run(*args, *flags)
             return out
         fn = lambda *a: run(*a, *flags)[0]
@@ -267,6 +275,10 @@ class _Solver:
         out = graph(*args)
         self.host_syncs = 0
         return out
+
+    def _replayed(self, device) -> bool:
+        """Whether a call on device replays a graph (`graphs.replayed`)."""
+        return graphs.replayed(device)
 
     def run(self, x0, u0, goal, P0, p0, d0, it_cap, w, initial_rollout: bool,
             ignore_first_defect: bool):
@@ -317,6 +329,39 @@ class _Solver:
                 break
         return syncs
 
+    def _open_loop(self, x0, u0):
+        """The cold start's multiple-shooting rollout of x0, u0 (B, N, ...):
+        (x, d)."""
+        return open_loop_rollout(self.cfg, self.chain.open_loop, x0, u0)
+
+    def _total_cost(self, stage, x, u):
+        """Each trajectory's cost, stage(x, u, k) summed over the time axis:
+        x (..., N, n) -> (...)."""
+        return stage(x, u, torch.arange(x.shape[-2], device=x.device)).sum(-1)
+
+    def _defect_norm(self, d):
+        """The defect metric of each scenario (defectKern,
+        fpHelpers.cuh:94-111): the largest L1 norm over d's knots, (B,)."""
+        return d.abs().sum(-1).amax(-1)
+
+    def _passes(self, c: _Carry, goal, w, stage, alphas):
+        """One iteration's derivative stage, backward pass (with rho retry)
+        and forward pass at c's trajectory: (BackwardPassResult,
+        RolloutResult)."""
+        cfg = self.cfg
+        # derivatives at the accepted trajectory (nextIterationSetupGPU,
+        # which runs on accept or reject)
+        AB, H, g = _derivatives(cfg, self.step_jac, per_scenario(self.cost.quad, c.goal_dims),
+                                c.x, c.u, goal, w)
+
+        # BACKWARD PASS (with rho retry) ---------------------------------------
+        bp = backward_pass(cfg, AB, H, g, c.P, c.p, c.d, c.x, c.xp2, c.rho, c.drho)
+
+        # FORWARD PASS ----------------------------------------------------------
+        ro = forward_pass(cfg, self.step_fwd, stage, c.x, c.u, c.d, bp.K, bp.du,
+                          bp.ApBK, bp.Bdu, c.x, alphas, fused_sim=self.fused_sim)
+        return bp, ro
+
     def _init_carry(self, x0, u0, goal, w, P0, p0, d0, initial_rollout, ignore_first_defect,
                     shared_goal: bool = False):
         """The state before the first iteration (fresh tensors: the caller's
@@ -327,7 +372,7 @@ class _Solver:
             x0, u0, P0, p0, d0 = (one(t) for t in (x0, u0, P0, p0, d0))
             shared_goal = True
         cfg = self.cfg
-        N = cfg.num_time_steps
+        N = x0.shape[1]
         B = x0.shape[0]
         n, m = self.plant.n_state, self.plant.n_ctrl
         dtype, device = x0.dtype, x0.device
@@ -335,13 +380,13 @@ class _Solver:
         full = lambda value, dt=dtype: torch.full((B,), value, dtype=dt, device=device)
         dims = None if shared_goal else goal_dims(goal)
         if initial_rollout:
-            x, d = open_loop_rollout(cfg, self.chain.open_loop, x0, u0)
+            x, d = self._open_loop(x0, u0)
         else:
             x = x0.clone()
             d = d0.clone() if d0 is not None else zeros(N, n)
         u = u0.clone()
         stage = per_scenario(self.stage, dims)
-        J0 = stage(x, u, torch.arange(N, device=device), goal, weights_of(w, x)).sum(-1)
+        J0 = self._total_cost(lambda xk, uk, k: stage(xk, uk, k, goal, weights_of(w, x)), x, u)
         J_trace = torch.full((B, cfg.max_iter + 1), torch.nan, dtype=dtype, device=device)
         J_trace[:, 0] = J0
         alpha_trace = torch.full((B, cfg.max_iter + 1), -2, dtype=torch.int32, device=device)
@@ -349,7 +394,7 @@ class _Solver:
         # host and synchronises the stream
         alpha_trace[:, :1].fill_(0 if initial_rollout else -1)
         defect_trace = torch.full((B, cfg.max_iter + 1), torch.nan, dtype=dtype, device=device)
-        defect_trace[:, 0] = d.abs().sum(-1).amax(-1)
+        defect_trace[:, 0] = self._defect_norm(d)
         return _Carry(
             goal_dims=dims,
             x=x, u=u, d=d, xp2=x.clone(),
@@ -372,7 +417,7 @@ class _Solver:
         committed under active[b] = ~done[b] & (it[b] <= cap): run past the
         end of a scenario's solve it changes nothing there.  Returns the
         host reads made (the rho retry's, on the CPU)."""
-        cfg, cost = self.cfg, self.cost
+        cfg = self.cfg
         active = torch.logical_and(~c.done, c.it <= cap)
         w = weights_of(w, c.x)
         cost_stage = per_scenario(self.stage, c.goal_dims)
@@ -380,18 +425,8 @@ class _Solver:
         def stage(xk, uk, k):
             return cost_stage(xk, uk, k, goal, w)
 
-        # derivatives at the accepted trajectory (nextIterationSetupGPU,
-        # which runs on accept or reject)
-        AB, H, g = _derivatives(cfg, self.step_jac, per_scenario(cost.quad, c.goal_dims),
-                                c.x, c.u, goal, w)
-
-        # BACKWARD PASS (with rho retry) ---------------------------------------
-        bp = backward_pass(cfg, AB, H, g, c.P, c.p, c.d, c.x, c.xp2, c.rho, c.drho)
-
-        # FORWARD PASS ----------------------------------------------------------
         alphas = self.alphas(c.x.device, c.x.dtype)
-        ro = forward_pass(cfg, self.step_fwd, stage, c.x, c.u, c.d, bp.K, bp.du,
-                          bp.ApBK, bp.Bdu, c.x, alphas, fused_sim=self.fused_sim)
+        bp, ro = self._passes(c, goal, w, stage, alphas)
         ls = line_search(cfg, ro.J, ro.max_defect, alphas, bp.dJexp, c.prevJ,
                          c.ignore_defect)
 
@@ -422,8 +457,7 @@ class _Solver:
         c.record("J_trace", active, torch.where(accept, ls.J, c.prevJ))
         c.record("alpha_trace", active, torch.where(accept, sel, -1))
         c.record("defect_trace", active,
-                 torch.where(per_scenario_mask(accept, c.d), pick(ro.d), c.d)
-                 .abs().sum(-1).amax(-1))
+                 self._defect_norm(torch.where(per_scenario_mask(accept, c.d), pick(ro.d), c.d)))
         c.commit("xp2", active, c.x)
         c.commit("x", take, pick(ro.x))
         c.commit("u", take, pick(ro.u))

@@ -37,7 +37,7 @@ from parallel_ddp_tpu_torch import graphs, interop
 from parallel_ddp_tpu_torch.config import CostWeights
 from parallel_ddp_tpu_torch.ops import cuda_riccati, cuda_rollout
 from parallel_ddp_tpu_torch.parallel.backward import backward_pass
-from parallel_ddp_tpu_torch.parallel.sharding import make_batched_solver
+from parallel_ddp_tpu_torch.parallel.sharding import Mesh, make_batched_solver
 from parallel_ddp_tpu_torch.presets import ee_goal, kuka_ee
 from parallel_ddp_tpu_torch.solver import _Carry, make_ilqr_solver
 
@@ -224,5 +224,19 @@ def test_graph_route_of_the_batched_solve():
         for name, a in out._asdict().items():
             _same(a, getattr(ref, name), name)
     assert not torch.equal(got2.J, got.J)
-    with pytest.raises(NotImplementedError):
-        make_batched_solver(prob.plant, prob.cost, cfg, mesh=object())
+
+
+@pytest.mark.parametrize("case", ["not_a_mesh", "indivisible_batch"])
+def test_mesh_argument(case):
+    """`make_batched_solver` takes a port `Mesh`: anything else raises
+    TypeError, and a batch that the mesh's 'dp' size does not divide raises
+    ValueError (the reference's sharding.py:72-77)."""
+    prob, cfg = _config()
+    if case == "not_a_mesh":
+        with pytest.raises(TypeError):
+            make_batched_solver(prob.plant, prob.cost, cfg, mesh=object())
+        return
+    solve = make_batched_solver(prob.plant, prob.cost, cfg, mesh=Mesh((2,), ("dp",)))
+    goals = _stack([ee_goal(g, device="cpu") for g in GOALS])
+    with pytest.raises(ValueError):
+        solve(torch.zeros(3, N, 14), torch.zeros(3, N, 7), goals)

@@ -52,7 +52,8 @@ def test_port_has_modules():
                      "costs/joint.py", "constraints.py", "models/kuka/rbd.py",
                      "models/urdf.py", "runtime/messages.py", "runtime/lcm_wire.py",
                      "runtime/pubsub.py", "runtime/nodes.py", "tasks/pick_and_place.py",
-                     "utils/checkpoint.py", "utils/profiling.py"):
+                     "utils/checkpoint.py", "utils/profiling.py", "parallel/sharding.py",
+                     "parallel/sp.py"):
         assert expected in names
 
 

@@ -152,12 +152,11 @@ def test_iteration_budget_and_host_syncs():
     np.testing.assert_array_equal(_traces(out)[1], _traces(main)[1][:3])
 
 
-def test_assoc_scan_option_is_taken_and_bf16_still_refused():
+def test_assoc_scan_option_is_taken_and_bf16_with_it():
     """bp_assoc_scan (the exact log-depth backward pass) builds a solver,
-    and so do the two bf16 options with it (they raised before the port had
-    them): the forward simulation is the rollout op's bfloat16 entry, the
-    stage cost the wrapped one, the backward pass still the exact one.  (The
-    name is the one the test had while the bf16 options raised.)"""
+    and so do the two bf16 options with it: the forward simulation is the
+    rollout op's bfloat16 entry, the stage cost the wrapped one, the
+    backward pass still the exact one."""
     prob = kuka_ee(num_time_steps=N, m_blocks=M, num_alpha=A)
     cfg = dataclasses.replace(prob.cfg, pallas_riccati=False, state_reg=False,
                               bp_assoc_scan=True)
@@ -172,12 +171,11 @@ def test_assoc_scan_option_is_taken_and_bf16_still_refused():
     assert float(out.J) <= float(out.J_trace[0])
 
 
-def test_unported_options_raise():
+def test_reference_bf16_rollout_config_is_taken():
     """A reference configuration with bf16_rollout maps through
-    `interop.solver_config` to a port solver that takes it (it raised before
-    the port had it) and whose cold solve lowers J (the trace against the
-    float32 solve: tests/test_torch_bf16.py).  (The name is the one the test
-    had while the option raised.)"""
+    `interop.solver_config` to a port solver that takes it and whose cold
+    solve lowers J (the trace against the float32 solve:
+    tests/test_torch_bf16.py)."""
     cfg_ref = _reference()[0]
     prob = kuka_ee(num_time_steps=N, m_blocks=M, num_alpha=A)
     cfg = interop.solver_config(dataclasses.replace(cfg_ref, bf16_rollout=True))
